@@ -13,9 +13,9 @@ Three sections, each one JSON line + a table written via io.tables:
   3. V-cycle residual table: per-cycle residuals of a full Poisson
      solve (FixedSizeSQLDB + Table sinks).
 
-The path to 1e9 DoFs: a 1025^3 grid is 4.3 GB in f32 — four v5p-class
-chips (or one host) with the row-slab SPMD sharding of
-structured/spmd.py; per-chip work is identical to section 2.
+The path to 1e9 DoFs: a 1025^3 grid is 4.3 GB in f32, which fits one
+80 GB card, or four with the row-slab SPMD sharding of
+structured/spmd.py; per-card work is identical to section 2.
 
 Usage: python bench_scaling.py [level]
 """
@@ -134,6 +134,9 @@ def vcycle_residual_table(level: int):
 
 
 def main():
+    from hyteg_tpu.core.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
     level = int(sys.argv[1]) if len(sys.argv) > 1 else 7
     for rec in (weak_scaling(level), large_apply(),
                 vcycle_residual_table(level)):

@@ -121,6 +121,9 @@ def bench_box(level: int):
 
 
 def main():
+    from hyteg_tpu.core.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
     p1_level = int(sys.argv[1]) if len(sys.argv) > 1 else 6
     p2_level = int(sys.argv[2]) if len(sys.argv) > 2 else 5
     box_level = int(sys.argv[3]) if len(sys.argv) > 3 else 7

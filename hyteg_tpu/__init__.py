@@ -1,14 +1,14 @@
-"""hyteg_tpu: TPU-native matrix-free finite elements + geometric multigrid.
+"""hyteg_tpu: matrix-free finite elements + geometric multigrid in JAX.
 
-Package-wide numerical policy: on TPU, XLA's DEFAULT matmul precision
-feeds f32 ``dot``/``einsum`` operands through the MXU in bf16.  For an FE
-solver stack this is not a benign speed knob — CG step sizes computed
-from bf16 dot products turned the box-GMG coarse solve into an error
-*amplifier* (residual x2.11/cycle at level 6 on v5e) while the identical
-float32 program converged on CPU.  A numerics framework must default to
-f32-accurate matmuls; the hot stencil paths are Pallas/elementwise code
-and do not pay for this.  Set HYTEG_TPU_FAST_MATMUL=1 before import to
-opt out for ML-style workloads layered on top.
+Package-wide numerical policy: on the GPU, XLA's DEFAULT matmul precision
+may run f32 ``dot``/``einsum`` operands through the tensor cores in TF32,
+which keeps about three decimal digits.  For an FE solver stack this is
+not a benign speed knob — CG step sizes computed from rounded dot
+products turn a multigrid coarse solve into an error *amplifier*.  A
+numerics framework must default to f32-accurate matmuls; the hot stencil
+paths are elementwise code and do not pay for this.  Set
+HYTEG_TPU_FAST_MATMUL=1 before import to opt out for ML-style workloads
+layered on top.
 """
 
 import logging

@@ -6,7 +6,7 @@ red-green (red = regular split into 4 triangles / 8 tetrahedra, green =
 closure elements to avoid hanging nodes), then rebuilds storage +
 re-balances. Here the refined mesh is a new MeshInfo from which a new
 CellStorage is built (the rebuild *is* the migration/re-balancing step for
-the TPU storage); DoF fields move between storages with the batched point
+the flat storage); DoF fields move between storages with the batched point
 locator (adaptivity/transfer.py).
 
 The red child layout is exactly Bey's red refinement as derived in

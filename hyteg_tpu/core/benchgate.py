@@ -29,11 +29,12 @@ def gate_close(a, b, what: str, rtol: float = 1e-5) -> None:
 
 
 def gate_box_apply(op, u) -> None:
-    """Pallas-vs-XLA equivalence of the box stencil apply, on device at
-    the exact benchmarked shapes (Mosaic lane padding, roll wrap targets
-    and halo splicing are all exercised)."""
+    """Kernel-vs-XLA equivalence of the box stencil apply, on device at
+    the exact benchmarked shapes: on a GPU ``apply_raw`` runs the Triton
+    kernel (lane tiles, row chunks and clamped edge reads are all
+    exercised), and ``_apply_xla`` is its independent reference."""
     gate_close(op.apply_raw(u), op._apply_xla(u),
-               f"box apply pallas-vs-xla at {op.domain.block_shape}")
+               f"box apply kernel-vs-xla at {op.domain.block_shape}")
 
 
 def gate_residuals(rns, what: str, max_rate: float = 0.5,

@@ -1,6 +1,6 @@
 """DG1 (discontinuous piecewise-linear) function space.
 
-TPU-native equivalent of the reference's DGFunction/DG1Function
+Equivalent of the reference's DGFunction/DG1Function
 (reference: src/hyteg/dgfunctionspace/DGFunction.hpp,
 src/hyteg/dg1functionspace/DG1Function.hpp). A DG1 function stores
 ``nv = dim+1`` nodal values (at the element's vertices) per micro-element in

@@ -1,6 +1,6 @@
 """Standalone EdgeDoF function space (one scalar DoF per micro-edge).
 
-TPU-native equivalent of the reference's EdgeDoFFunction
+Equivalent of the reference's EdgeDoFFunction
 (reference: src/hyteg/edgedofspace/EdgeDoFFunction.hpp, orientations
 src/hyteg/edgedofspace/EdgeDoFOrientation.hpp:29-39 — X, Y, Z, XY, XZ, YZ,
 XYZ). As with P2 (see functions/p2.py) and N1E1 (functions/n1e1.py), edge

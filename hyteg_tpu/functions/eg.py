@@ -1,6 +1,6 @@
 """EG (enriched Galerkin) function space: [P1]^dim + P0 enrichment.
 
-TPU-native redesign of the reference's EG space
+Redesign of the reference's EG space
 (reference: src/hyteg/egfunctionspace/EGFunction.hpp and the generated
 Nitsche forms under egfunctionspace/): a vector-valued function
 

@@ -1,11 +1,11 @@
 """Point evaluation of P1/P2 fields at arbitrary physical points.
 
-TPU-native redesign of the reference's point evaluation
+Redesign of the reference's point evaluation
 (reference: src/hyteg/p1functionspace/VertexDoFFunction.hpp `evaluate` /
 `evaluateGradient`, src/hyteg/geometry/ closest-point search): instead of a
 host-side octree / neighbor walk, the containing macro-cell is found by
 computing barycentric coordinates of every query point w.r.t. *every*
-macro-cell in one batched matmul (MXU-friendly, O(Q*C) but fully on-device,
+macro-cell in one batched matmul (O(Q*C) but fully on-device,
 no data-dependent control flow), and the containing micro-element class is
 picked the same way among the per-cube congruence-class candidates
 (reference: src/hyteg/volumedofspace/CellDoFIndexing.hpp:38-55).

@@ -1,15 +1,14 @@
 """Dense structured interface exchange (the compiled-PackInfo fast path).
 
 The generic slot-map exchange (functions/p1.py) is exact but relies on
-element-level gather/scatter, which XLA lowers to the TPU scalar core
-(~17 ns/element — measured). This module re-expresses the same exchange as
+element-level gather/scatter. This module re-expresses the same exchange as
 *dense plane/line operations*:
 
   * every interface DoF of a cell block lies on one of its faces (3D),
     edges, or vertices;
   * coordinate faces/edges are dense slices; the diagonal face x+y+z=n and
     diagonal edges are extracted/written with one-hot einsum contractions
-    (MXU/VPU work, no gathers);
+    (dense arithmetic, no gathers);
   * faces are mapped to the canonical frame of their macro-face (sorted
     global vertex ids) by one of the 6 triangle symmetries — compositions
     of transpose and the shear (p,q) -> (p, n-p-q), found automatically at
@@ -174,7 +173,7 @@ class DenseIfc:
     Operates on the canonical flat block layout (C, N, N*pitch) in 3D
     (lane = y*pitch + z; see indexing/flat.py) and (C, N, N) in 2D.
     Faces/edges are extracted into their 2D/1D parametrizations by lane
-    slicing and one-hot contractions (dense VPU/MXU work, no gathers)."""
+    slicing and one-hot contractions (dense arithmetic, no gathers)."""
 
     N: int
     dim: int

@@ -1,6 +1,6 @@
 """N1E1 (Nedelec edge elements of the first kind, lowest order) space.
 
-TPU-native redesign of the reference's N1E1VectorFunction
+Redesign of the reference's N1E1VectorFunction
 (reference: src/hyteg/n1e1functionspace/N1E1VectorFunction.hpp and the
 edge-orientation tables in src/hyteg/edgedofspace/EdgeDoFOrientation.hpp:29-39).
 

@@ -1,6 +1,6 @@
 """P1 (vertex-DoF) function space on sharded macro-cell blocks.
 
-TPU-native redesign of the reference's VertexDoFFunction
+Redesign of the reference's VertexDoFFunction
 (reference: src/hyteg/p1functionspace/VertexDoFFunction.hpp:58-486).
 DoF values live in dense masked *flat* blocks ``(C, N, N*pitch)`` in 3D
 (lane = y*pitch + z; see indexing/flat.py) and ``(C, N, N)`` in 2D, one
@@ -214,7 +214,7 @@ class P1Space:
 
     def to_grid(self, u):
         """(C, N, lanes) -> (C, N, N, pitch) grid view (3D; identity in 2D).
-        Cheap when sliced immediately; avoid materializing on TPU."""
+        Cheap when sliced immediately; avoid materializing it."""
         if self.dim == 2:
             return u
         return u.reshape(u.shape[:-1] + (self.N, self.pitch))
@@ -315,8 +315,8 @@ class P1Space:
         re-based onto the all-gathered (C_total, N...) block. This is the
         agglomeration analog (reference: AgglomerationWrapper.hpp:75) — the
         coarse level is gathered and solved redundantly on every device,
-        which on TPU beats a rank-subset solve (compute is cheap, the gather
-        is one ICI collective, and the solve itself needs no communication).
+        instead of on a rank subset (the gather is one collective, and the
+        solve itself needs no communication).
         """
         key = ("global", bc)
         if key not in self._sd_cache:

@@ -1,6 +1,6 @@
 """P2 (quadratic Lagrange) function space on dense node grids.
 
-TPU-native redesign of the reference's P2Function = VertexDoF + EdgeDoF
+Redesign of the reference's P2Function = VertexDoF + EdgeDoF
 composition (reference: src/hyteg/p2functionspace/P2Function.hpp:38-77,
 src/hyteg/edgedofspace/EdgeDoFFunction.hpp). Key observation: the micro-edge
 midpoints of refinement level L are exactly the micro-vertices of level

@@ -7,7 +7,7 @@ src/hyteg/functions/BlockFunction.hpp:39 (a vector of type-erased
 sub-functions with joint assign/dot/enumerate — the base of the Stokes
 block functions).
 
-TPU-native redesign: functions here are pytrees, so the "type erasure"
+Redesign: functions here are pytrees, so the "type erasure"
 is structural — a BlockFunction is itself a pytree of its components
 with vector-space arithmetic, and the registry stores (name -> kind,
 object) pairs for enumeration by IO/checkpoint code.  No virtual

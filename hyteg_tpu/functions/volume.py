@@ -1,6 +1,6 @@
 """VolumeDoF / P0 / DG function spaces: per-micro-element DoFs.
 
-TPU-native redesign of the reference's VolumeDoFFunction
+Redesign of the reference's VolumeDoFFunction
 (reference: src/hyteg/volumedofspace/VolumeDoFFunction.hpp,
 CellDoFIndexing.hpp:38-55 WHITE_UP..GREEN_DOWN micro-cell types, SoA/AoS
 layouts VolumeDoFIndexing.hpp:44-48) and P0Function

@@ -1,8 +1,8 @@
 """Flat-lane block layout for 3D micro-grids.
 
-TPU lanes are 128-wide; a (C, N, N, N) block layout pads the minor (z) axis
-to 128 lanes (~2x waste at N = 65) and XLA materializes merged-dim reshapes
-as multi-ms relayouts. The canonical 3D layout is therefore *flat*:
+A (C, N, N, N) block layout with a short minor (z) axis wastes tile
+padding, and merged-dim reshapes may materialize as relayouts. The
+canonical 3D layout is therefore *flat*:
 
     block = (C, N, L) with L = N * P,  lane l = y * P + z
 
@@ -19,8 +19,7 @@ the macro-tet).
 
 Replaces the reference's closed-form micro-indexing
 (reference: src/hyteg/p1functionspace/VertexDoFIndexing.hpp:43-495,
-src/hyteg/Levelinfo.hpp:36-120) with layout arithmetic that maps directly
-onto the TPU register file.
+src/hyteg/Levelinfo.hpp:36-120) with layout arithmetic on dense arrays.
 """
 
 from __future__ import annotations
@@ -141,7 +140,7 @@ def repitch(u, N: int, p_old: int, p_new: int):
 
 def to_grid(u, N: int, pitch: int):
     """jnp (C, N, N*pitch) -> (C, N, N, pitch) view (reshape; cheap when the
-    consumer slices, expensive if materialized on TPU — use in cold paths)."""
+    consumer slices, expensive if materialized — use in cold paths)."""
     return u.reshape(u.shape[:-1] + (N, pitch))
 
 

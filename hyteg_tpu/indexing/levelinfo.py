@@ -1,6 +1,6 @@
 """Closed-form micro-entity counts on refined simplices.
 
-TPU-native re-design of the reference's level bookkeeping
+Re-design of the reference's level bookkeeping
 (reference: src/hyteg/Levelinfo.hpp:36-120). A macro-simplex refined to
 ``level`` has ``n = 2**level`` intervals per edge and ``N = n + 1``
 micro-vertices per edge.

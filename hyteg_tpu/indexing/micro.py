@@ -7,7 +7,7 @@ src/hyteg/p1functionspace/VertexDoFIndexing.hpp:43-495). Here the classes
 are *derived* from Bey's red refinement of the reference tetrahedron
 (see tests/test_micro_derivation.py, which re-runs the derivation) and the
 index space is kept as a dense, masked (N, N, N) cube per macro-cell so that
-every per-level operation is a static-shape XLA/Pallas computation.
+every per-level operation is a static-shape XLA computation.
 
 Index convention: micro-vertex (x, y, z), 0 <= x+y+z <= n where
 n = 2**level; barycentric weight of macro-vertex V0 is (n-x-y-z)/n and of

@@ -1,26 +1,28 @@
-"""Pallas TPU kernel for the BoxDomain 15-point stencil apply.
+"""Pallas kernel (Triton route) for the BoxDomain 15-point stencil apply.
 
-The box layout makes this the minimal stencil kernel (contrast with the
-per-tet kernel in p1_const_stencil.py): no diagonal shells, no face
-inclusion-exclusion in-kernel — boundary handling lives entirely in the
-precomputed per-lane weight vectors (structured/kuhn.py) plus two
-single-row fixes.  Per row-tile:
+The box layout makes this the minimal stencil kernel: no diagonal shells
+and no face inclusion-exclusion in the kernel.  The boundary handling
+lives in the precomputed per-lane weight vectors (structured/kuhn.py)
+plus two single-row fixes.
 
-  * 6 shared lane rolls (one per distinct (dy, dz) class, wrap targets
-    carry exactly-zero weights),
-  * 15 lane-broadcast FMAs grouped by dx into three accumulators
-    S-, S0, S+ — so the dx = ±1 sublane shifts happen ONCE on the
-    reduced accumulators (2 splices) instead of once per direction
-    (round-3 kernel: 8 concatenates),
-  * no input masking: unspecified values in the padding rows of the
-    last tile only ever reach padding rows of dst (clipped on
-    write-back) or the two boundary rows, which are re-evaluated from
-    scratch — see the row-by-row argument at `kernel` below,
-  * halo rows ride along as one small resident array (or (8, L) blocks
-    shared by 4 tiles when the grid is long); round 3 streamed (8, L)
-    per tile — 4x the halo bytes, 53% of the main stream at level 7,
-  * 15 + 15 narrow (1, L) FMAs re-evaluating global rows 0 and X-1 with
-    their own weight vectors.
+Work split.  Program (j, k) owns lane tile j (``block_lanes`` lanes) and
+walks the rows of x-chunk k (``chunk_rows`` rows) in a loop.  The 15
+directions fall into 7 lane shifts (0, +-1, +-Z, +-(Z+1)); each row is
+read once per lane shift and folded into three dx-grouped sums
+
+    C(r) = sum_{dx=0} w u[r, l+ls],  P(r) = sum_{dx=+1} ...,
+    M(r) = sum_{dx=-1} ...,
+
+so that dst[r-1] = C(r-1) + P(r) + M(r-2): 7 reads per row instead of 15,
+and the loop carries C and M of the last two rows in registers.  The
+interior weights of the tile are loaded once per program.  Lane and row
+indices of the reads are clamped into the array: every clamped read
+carries an exactly zero weight (kuhn.lane_weights), so no masks are
+needed on loads.  Rows 0 and X-1 take their own weight vectors and are
+recomputed after the loop by the programs that own them.
+
+Storage may be bfloat16: the kernel loads the storage dtype, accumulates
+in float32 with float32 weights, and stores the storage dtype.
 
 Reference analog: src/constant_stencil_operator/P1generatedKernels/
 apply_3D_macrocell_vertexdof_to_vertexdof_replace.cpp:14-60 (the 15-point
@@ -34,188 +36,113 @@ import functools
 
 import jax
 import jax.numpy as jnp
-import numpy as np
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as pltriton
 
-from ..indexing import flat  # noqa: F401  (kept for parity with p1 kernels)
-from .p1_stencil import _compiler_params
 from ..structured import kuhn
 
 
-def _pick_tx(X: int, L: int, n_live: int = 14) -> int:
-    budget = 80 * 1024 * 1024
-    lanes = -(-L // 128) * 128
-    tx = 8
-    for cand in (8, 16, 32, 64, 128):
-        if cand > -(-X // 8) * 8:
-            break
-        if n_live * cand * lanes * 4 <= budget:
-            tx = cand
-    return tx
-
-
-def _make_kernel(X: int, Y: int, Z: int, n_s: int, TX: int, NT: int,
-                 hal_resident: bool):
-    L = Y * Z
+def _terms(Z: int):
+    """(s, dx, lane shift) per stencil direction, and the sorted shifts."""
     dirs = kuhn.stencil_dirs()
-    lane_classes = sorted({int(d[1]) * Z + int(d[2]) for d in dirs})
-    rl = (X - 1) - (NT - 1) * TX  # static local row of global row X-1
-    VR = X - (NT - 1) * TX        # valid rows in the last tile (= rl + 1)
+    terms = [(s, int(d[0]), int(d[1]) * Z + int(d[2]))
+             for s, d in enumerate(dirs)]
+    return terms, sorted({ls for _, _, ls in terms})
 
-    def lroll(v, ls):
-        return v if ls == 0 else pltpu.roll(
-            v, v.shape[1] - ls if ls > 0 else -ls, axis=1)
 
-    # Why no input masking is needed (padding rows of the last tile hold
-    # unspecified values):
-    #   acc0 garbage stays on its own (invalid) rows;
-    #   accm[r-1] pollutes rows r >= VR + 1 — all invalid;
-    #   accp[r+1] pollutes row VR - 1 = global X-1 — overwritten below.
-    # Halo rows are always real (clamped) u rows, so hfp/hfm are finite;
-    # their values only matter on rows that are not overwritten, where the
-    # clamped index is exact.
-    def kernel(w_ref, hal_ref, cur_ref, dst_ref):
-        i = pl.program_id(0)
-        # upcast in VMEM: HBM streams the block dtype (bf16 halves the
-        # bytes); Mosaic's lane rotate only supports 32-bit data
-        cur = cur_ref[...].astype(jnp.float32)
-        odt = dst_ref.dtype
+def _make_kernel(X: int, Y: int, Z: int, block_lanes: int, chunk_rows: int):
+    L = Y * Z
+    terms, shifts = _terms(Z)
+    n_s = len(terms)
+    BL, XC = block_lanes, chunk_rows
 
-        def st(x):  # mixed precision: accumulate f32, store block dtype
-            return x.astype(odt)
+    def kernel(w_ref, u_ref, o_ref):
+        j = pl.program_id(0)
+        x0 = pl.program_id(1) * XC
+        lanes = j * BL + jnp.arange(BL, dtype=jnp.int32)
+        lane_ok = lanes < L
+        lidx = {ls: jnp.clip(lanes + ls, 0, L - 1) for ls in shifts}
 
-        q = 2 * i if hal_resident else 2 * (i % 4)
-        hp = hal_ref[pl.ds(q, 1), :]
-        hn = hal_ref[pl.ds(q + 1, 1), :]
+        def weights(c):
+            return [w_ref[c * n_s + s, lidx[0]] for s in range(n_s)]
 
-        # dx-grouped accumulation: each lane class is rolled once and
-        # consumed by all three dx groups; the sublane shift is applied
-        # once per GROUP afterwards (2 splices total, halo spliced in)
-        acc0 = None
-        accp = None  # sum over dx = +1 dirs, still at source rows
-        accm = None  # sum over dx = -1 dirs
-        hfp = None   # the same +1 sum evaluated on the next-halo row
-        hfm = None   # the -1 sum on the prev-halo row
-        for ls in lane_classes:
-            b = lroll(cur, ls)
-            hpb = None
-            hnb = None
-            for s in range(n_s):
-                dx, dy, dz = (int(v) for v in dirs[s])
-                if dy * Z + dz != ls:
-                    continue
-                w = w_ref[s : s + 1, :]
-                t = w * b
-                if dx == 0:
-                    acc0 = t if acc0 is None else acc0 + t
-                elif dx == 1:
-                    accp = t if accp is None else accp + t
-                    if hnb is None:
-                        hnb = lroll(hn, ls)
-                    t2 = w * hnb
-                    hfp = t2 if hfp is None else hfp + t2
-                else:
-                    accm = t if accm is None else accm + t
-                    if hpb is None:
-                        hpb = lroll(hp, ls)
-                    t2 = w * hpb
-                    hfm = t2 if hfm is None else hfm + t2
-        # dst[r] = acc0[r] + accp[r + 1] + accm[r - 1]: three stores with
-        # static sublane-offset reads — no materialized concatenates
-        dst_ref[0:1, :] = st(acc0[0:1] + accp[1:2] + hfm)
-        dst_ref[1 : TX - 1, :] = st(acc0[1 : TX - 1] + accp[2:TX]
-                                    + accm[: TX - 2])
-        dst_ref[TX - 1 : TX, :] = st(acc0[TX - 1 : TX] + hfp
-                                     + accm[TX - 2 : TX - 1])
+        def reads(r):
+            rc = jnp.clip(r, 0, X - 1)
+            return {ls: u_ref[rc, lidx[ls]].astype(jnp.float32)
+                    for ls in shifts}
 
-        # boundary rows 0 / X-1: re-evaluated with their own weight
-        # vectors on (1, L) slices, only in the first / last tile
-        def row_fix(wo, rm1, r0, r1):
-            fix = None
-            for s in range(n_s):
-                dx, dy, dz = (int(v) for v in dirs[s])
-                v = (rm1, r0, r1)[dx + 1]
-                t = w_ref[wo + s : wo + s + 1, :] * lroll(v, dy * Z + dz)
-                fix = t if fix is None else fix + t
-            return fix
+        def group(w, rd, gdx):
+            acc = None
+            for s, dx, ls in terms:
+                if dx == gdx:
+                    t = w[s] * rd[ls]
+                    acc = t if acc is None else acc + t
+            return acc
 
-        @pl.when(i == 0)
+        def store(r, v):
+            pltriton.store(o_ref.at[r, pl.ds(j * BL, BL)],
+                           v.astype(o_ref.dtype), mask=lane_ok)
+
+        w0 = weights(0)
+        m_prev = group(w0, reads(x0 - 1), -1)
+        rd = reads(x0)
+        carry = (m_prev, group(w0, rd, 0), group(w0, rd, -1))
+
+        def body(i, carry):
+            m_prev, c_cur, m_cur = carry
+            r = x0 + 1 + i
+            rd = reads(r)
+
+            @pl.when(r - 1 < X)
+            def _():
+                store(r - 1, c_cur + group(w0, rd, 1) + m_prev)
+
+            return m_cur, group(w0, rd, 0), group(w0, rd, -1)
+
+        jax.lax.fori_loop(0, XC, body, carry)
+
+        # dx = -1 weights are exactly zero on row 0, dx = +1 on row X-1
+        @pl.when(x0 == 0)
         def _():
-            # dx = -1 weights are exactly zero at global row 0; the
-            # clamped hp is a safe placeholder read
-            dst_ref[0:1, :] = st(row_fix(n_s, hp, cur[0:1, :],
-                                         cur[1:2, :]))
+            w1 = weights(1)
+            store(0, group(w1, reads(0), 0) + group(w1, reads(1), 1))
 
-        @pl.when(i == NT - 1)
+        @pl.when(x0 + XC >= X)
         def _():
-            # dx = +1 weights are exactly zero at global row X-1, but the
-            # operand must be finite: row rl+1 is padding garbage when it
-            # exists, so use the (finite, clamped) hn instead
-            dn = cur[rl - 1 : rl, :] if rl >= 1 else hp
-            up = cur[rl + 1 : rl + 2, :] if rl + 1 < VR else hn
-            dst_ref[rl : rl + 1, :] = st(row_fix(
-                2 * n_s, dn, cur[rl : rl + 1, :], up))
+            w2 = weights(2)
+            store(X - 1, group(w2, reads(X - 1), 0)
+                  + group(w2, reads(X - 2), -1))
 
     return kernel
 
 
-@functools.partial(jax.jit, static_argnames=("dims", "interpret"))
-def box_apply_pallas(u: jnp.ndarray, w_vecs: jnp.ndarray, dims,
+@functools.partial(jax.jit, static_argnames=("dims", "block_lanes",
+                                             "chunk_rows", "interpret"))
+def box_apply_triton(u: jnp.ndarray, w_vecs: jnp.ndarray, dims,
+                     block_lanes: int = 256, chunk_rows: int = 64,
                      interpret: bool = False) -> jnp.ndarray:
-    """u: (X, L); w_vecs: (3, n_s, L) from kuhn.lane_weights."""
+    """u: (X, L) in float32 or bfloat16; w_vecs: (3, n_s, L) from
+    kuhn.lane_weights.  Returns A u in the dtype of ``u``.
+
+    The default tile (with 4 warps per program) was the fastest of ten
+    (block_lanes, chunk_rows, warps) choices on an H100 (400 W limit) at
+    513^3 DoFs; the other nine took 1.06-1.45x as long."""
     X, Y, Z = dims
     L = Y * Z
+    if u.shape != (X, L):
+        raise ValueError(f"u has shape {u.shape}, expected {(X, L)}")
+    if X < 2:
+        raise ValueError(f"the box kernel needs X >= 2 rows, got {X}")
     n_s = w_vecs.shape[1]
-    TX = _pick_tx(X, L)
-    NT = -(-X // TX)
-    # short grids keep the whole halo array VMEM-resident (constant index
-    # map -> fetched once); long grids read (8, L) blocks shared by 4
-    # consecutive tiles (sublane blocks must be multiples of 8)
-    hal_resident = NT <= 32
-    kernel = _make_kernel(X, Y, Z, n_s, TX, NT, hal_resident)
-    # weights stay f32 even for bf16 blocks (mixed precision: bf16
-    # stream, f32 weights + accumulation, bf16 store)
     w = w_vecs.reshape(3 * n_s, L).astype(jnp.float32)
-
-    # per-tile 1-row halos: hal[2i] = u[i*TX - 1], hal[2i+1] = u[(i+1)*TX]
-    # (clamped)
-    NB = NT if hal_resident else -(-NT // 4) * 4
-    idx = np.zeros((NB, 2), dtype=np.int64)
-    t = np.minimum(np.arange(NB), NT - 1)
-    idx[:, 0] = np.clip(t * TX - 1, 0, X - 1)
-    idx[:, 1] = np.clip((t + 1) * TX, 0, X - 1)
-    # halo rows stay f32 regardless of block dtype: bf16 sublane
-    # granularity (16) rejects the per-tile single-row dynamic slices
-    hal = u[jnp.asarray(idx.reshape(-1))].astype(jnp.float32)
-
-    if hal_resident:
-        hal_spec = pl.BlockSpec((2 * NB, L), lambda i: (0, 0),
-                                memory_space=pltpu.VMEM)
-    else:
-        hal_spec = pl.BlockSpec((8, L), lambda i: (i // 4, 0),
-                                memory_space=pltpu.VMEM)
-
-    grid_spec = pl.GridSpec(
-        grid=(NT,),
-        in_specs=[
-            pl.BlockSpec((3 * n_s, L), lambda i: (0, 0),
-                         memory_space=pltpu.VMEM),
-            hal_spec,
-            pl.BlockSpec((TX, L), lambda i: (i, 0), memory_space=pltpu.VMEM),
-        ],
-        out_specs=pl.BlockSpec((TX, L), lambda i: (i, 0),
-                               memory_space=pltpu.VMEM),
-    )
+    grid = (pl.cdiv(L, block_lanes), pl.cdiv(X, chunk_rows))
     return pl.pallas_call(
-        kernel,
-        grid_spec=grid_spec,
+        _make_kernel(X, Y, Z, block_lanes, chunk_rows),
+        grid=grid,
         out_shape=jax.ShapeDtypeStruct(u.shape, u.dtype),
-        cost_estimate=pl.CostEstimate(
-            flops=2 * n_s * X * L,
-            bytes_accessed=4 * X * L * 2,
-            transcendentals=0,
-        ),
-        compiler_params=_compiler_params((TX, L), n_arrays=24, grid_rank=1),
+        backend="triton",
+        compiler_params=pltriton.CompilerParams(num_warps=4,
+                                                num_stages=1),
+        name="box_stencil_apply",
         interpret=interpret,
-    )(w, hal, u)
+    )(w, u)

@@ -1,6 +1,6 @@
 """Constant-stencil P1 apply: the 15-point-stencil fast path.
 
-TPU-native analog of the reference's constant-stencil operators
+Analog of the reference's constant-stencil operators
 (reference: src/hyteg/constant_stencil_operator/P1ConstantOperator.cpp:239-667
 and the generated kernels, e.g. apply_3D_macrocell_vertexdof_to_vertexdof_
 replace.cpp:14-60 — a 15-point stencil swept over the macro-cell).
@@ -24,16 +24,13 @@ The weight c_s(p) is position dependent only near the four macro-tet faces:
     subsets G <= supp(off_a) with sign (-1)^(|G|+1) handles multi-face
     overlap (edges/corner).
 
-The resulting weights are *pointwise exact*, which buys a crucial kernel
-property: any read whose target leaves the macro-tet (wrapped rolls, lane
-aliasing across y-rows, block padding) is multiplied by an exactly zero
-coefficient — so shifted reads need no zero-fill masks at all. All tables
-are static; the apply is 15 shifted reads and ~45 full-tile
+The resulting weights are *pointwise exact*: any read whose target leaves
+the macro-tet (lane aliasing across y-rows, block padding) is multiplied by
+an exactly zero coefficient, so shifted reads need no per-direction masks.
+All tables are static; the apply is 15 shifted reads and ~45
 multiply-accumulate passes (vs. the 96 masked accumulation passes of the
-general elementwise path), with the face corrections confined to the first
-sublane tile / lane sub-slices where the layout allows. Verified against
-the general path / dense assembly in tests/test_const_stencil.py
-(CPU + Pallas interpret mode).
+general elementwise path), which XLA fuses into one loop.  Verified against
+the general path / dense assembly in tests/test_const_stencil.py.
 """
 
 from __future__ import annotations
@@ -41,14 +38,10 @@ from __future__ import annotations
 import functools
 import itertools
 
-import jax
 import jax.numpy as jnp
 import numpy as np
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
 from ..indexing import flat, micro
-from .p1_stencil import _compiler_params, _roll_helpers, _yz_prefetch
 
 
 @functools.lru_cache(maxsize=None)
@@ -74,14 +67,42 @@ def stencil_tables(dim: int):
     return dirs, tab, int(tab[:, 1].max()) + 1
 
 
+def ordered_scatter_add(vals: jnp.ndarray, cols, n_slots: int) -> jnp.ndarray:
+    """``zeros((C, n_slots)).at[:, cols].add(vals)`` with each slot's
+    entries added one after another in table order.
+
+    A scatter-add with repeated slots sums in whatever order the GPU's
+    atomics land, so two builds of the same weights can differ in the last
+    bit.  A last-bit change of a stencil's row sum moves the float32
+    solution of a Poisson problem by up to eps * cond(A) (1e-4 relative at
+    2M DoFs).  The fixed order gives the same weights on every device and
+    in every program, eager or traced."""
+    cols = np.asarray(cols)
+    counts = np.bincount(cols, minlength=n_slots)
+    order = np.argsort(cols, kind="stable")
+    starts = np.concatenate([[0], np.cumsum(counts)[:-1]])
+    # (n_slots, K) source columns; column vals.shape[1] is a zero pad
+    idx = np.full((n_slots, int(counts.max())), vals.shape[1])
+    for k in range(idx.shape[1]):
+        has = counts > k
+        idx[has, k] = order[starts[has] + k]
+    padded = jnp.concatenate([vals, jnp.zeros_like(vals[:, :1])], axis=1)
+    terms = padded[:, idx]
+    acc = terms[..., 0]
+    for k in range(1, idx.shape[1]):
+        acc = acc + terms[..., k]
+    return acc
+
+
 def stencil_weights(elmats: jnp.ndarray, dim: int) -> jnp.ndarray:
     """(C, T, nv, nv) element matrices -> (C, n_s, n_j) shell-resolved
-    stencil weights A (traceable; pure scatter-add over static tables)."""
+    stencil weights A (traceable; a fixed-order sum over static tables)."""
     dirs, tab, n_j = stencil_tables(dim)
     C = elmats.shape[0]
     flatm = elmats.reshape(C, -1)  # (C, T*nv*nv) in (t, a, b) order
-    A = jnp.zeros((C, dirs.shape[0], n_j), dtype=elmats.dtype)
-    return A.at[:, tab[:, 0], tab[:, 1]].add(flatm)
+    A = ordered_scatter_add(flatm, tab[:, 0] * n_j + tab[:, 1],
+                            dirs.shape[0] * n_j)
+    return A.reshape(C, dirs.shape[0], n_j)
 
 
 @functools.lru_cache(maxsize=None)
@@ -103,11 +124,9 @@ def face_tables_full(dim: int):
     """Like face_tables but with G <= supp(off_a) only (no off_b condition).
 
     These corrections make the stencil weights *pointwise exact* regardless
-    of read semantics: any read whose target leaves the macro-tet (wrapped
-    rolls, lane aliasing, out-of-block garbage) is multiplied by an exactly
-    zero total weight, because no valid element couples p with an
-    out-of-tet node.  This is what the Pallas kernel uses — no per-direction
-    zero-fill masks needed.
+    of read semantics: any read whose target leaves the macro-tet (lane
+    aliasing, out-of-block values) is multiplied by an exactly zero total
+    weight, because no valid element couples p with an out-of-tet node.
     Returns (groups, (n_G, n_j, n_s) dense numpy scatter info) like
     face_tables."""
     offs = micro.offsets(dim)
@@ -150,8 +169,7 @@ def face_weights_full(elmats: jnp.ndarray, dim: int) -> jnp.ndarray:
     C = elmats.shape[0]
     flatm = elmats.reshape(C, -1)
     vals = flatm[:, rows] * jnp.asarray(signs, dtype=elmats.dtype)
-    E = jnp.zeros((C, len(groups) * n_j * dirs.shape[0]), dtype=elmats.dtype)
-    E = E.at[:, cols].add(vals)
+    E = ordered_scatter_add(vals, cols, len(groups) * n_j * dirs.shape[0])
     return E.reshape(C, len(groups), n_j, dirs.shape[0])
 
 
@@ -195,7 +213,7 @@ def _mask_arrays(level: int, dim: int, pitch: int):
 
 
 def _combine(reads, main_w, main_tail, face_w, dim, masks):
-    """Shared accumulation logic for the XLA path and the Pallas kernel.
+    """Accumulation of the constant-stencil apply.
 
     reads: list of n_s shifted-read arrays (strictly zero-filled).
     main_w(s): total interior weight W_s (broadcastable against reads[s]).
@@ -263,7 +281,12 @@ def _xla_accessors(A, E, dim, dtype):
         return arr.reshape(-1, 1, 1).astype(dtype)
 
     def main_w(s):
-        return wk(A[:, s, :].sum(-1))
+        # summed in j order, like the weights themselves (see
+        # ordered_scatter_add): a reduce may pick its own order
+        w = A[:, s, 0]
+        for j in range(1, n_j):
+            w = w + A[:, s, j]
+        return wk(w)
 
     def main_tail(s, m):
         js = [j for j in range(m + 1, n_j) if nzs[s, j]]
@@ -283,8 +306,8 @@ def _xla_accessors(A, E, dim, dtype):
 
 
 def p1_const_apply_xla(src2d, A, level: int, dim: int, pitch: int, E=None):
-    """Pure-XLA constant-stencil apply (CPU fallback; exact same math as
-    the Pallas kernel — partial sums on interface rows).
+    """Constant-stencil apply in plain XLA (partial sums on interface
+    rows).
 
     Reads are plain flat shifts (ends zero-filled, lane aliasing allowed):
     the full-scheme weights are pointwise exact, so every out-of-tet read
@@ -304,485 +327,3 @@ def p1_const_apply_xla(src2d, A, level: int, dim: int, pitch: int, E=None):
     )
     accessors = _xla_accessors(A, E, dim, src2d.dtype)
     return _combine(reads, *accessors, dim, masks)
-
-
-# ---------------------------------------------------------------------------
-# Pallas kernel
-# ---------------------------------------------------------------------------
-
-
-def _whole_cell_ok(N: int, L: int, n_live: int = 45) -> bool:
-    """Whole-cell tiles iff ~n_live live block-sized arrays fit ~90 MB."""
-    lanes = -(-L // 128) * 128
-    rows = -(-N // 8) * 8
-    return n_live * rows * lanes * 4 <= 90 * 1024 * 1024
-
-
-def _make_const_kernel_whole(level: int, dim: int, pitch: int, n_j: int):
-    """Whole-cell kernel: grid (C,), one (N, L) tile per macro-cell.
-
-    No halo splices: sublane/lane rolls are cyclic, and every wrapped read
-    targets a point outside the macro-tet, whose total weight is exactly
-    zero under the full face-correction scheme (face_tables_full) — the
-    kernel's core invariant.  Lane rolls are shared across directions with
-    the same (dy, dz) (6 rolls instead of 14).  All pure-lane face groups
-    are accumulated full-tile (narrow misaligned lane slices lower poorly
-    on TPU); x-containing groups are fixed on a (1, L) row-0 slice and
-    spliced back with one sublane concatenate.
-    """
-    n = 1 << level
-    N = n + 1
-    L = N * pitch if dim == 3 else N
-    dirs, _, _ = stencil_tables(dim)
-    n_s = dirs.shape[0]
-    nzs = _structural_nonzero(dim)
-    groups, *_ = face_tables_full(dim)
-    nzf = _face_nonzero_full(dim)
-
-    def lane_shift(off):
-        return int(off[-1]) if dim == 2 else int(off[1]) * pitch + int(off[2])
-
-    lane_classes = sorted({lane_shift(dirs[s]) for s in range(n_s)})
-    full_groups = [(g, G) for g, G in enumerate(groups) if 0 not in G]
-    row_groups = [(g, G) for g, G in enumerate(groups) if 0 in G]
-
-    def kernel(w_ref, e_ref, yz_ref, src_ref, dst_ref):
-        c = pl.program_id(0)
-        dt = dst_ref.dtype
-        src = src_ref[0]
-        xs = jax.lax.broadcasted_iota(jnp.int32, (N, L), 0)
-        ly = yz_ref[0, :][None, :]
-        lz = yz_ref[1, :][None, :]
-        in_z = lz < N if dim == 3 else (lz >= 0)
-        s_sum = xs + ly + lz if dim == 3 else xs + lz
-        K0 = ((s_sum <= n) & in_z).astype(dt)
-        shells = [((s_sum == n - m) & in_z).astype(dt)
-                  for m in range(n_j - 1)]
-        coord = (xs, ly, lz) if dim == 3 else (xs, lz)
-
-        def lroll(v, ls):
-            return v if ls == 0 else pltpu.roll(
-                v, L - ls if ls > 0 else -ls, axis=1)
-
-        base = {ls: lroll(src, ls) for ls in lane_classes}
-
-        def wsum(ref, idxs):
-            w = ref[c, idxs[0]]
-            for k in idxs[1:]:
-                w = w + ref[c, k]
-            return w
-
-        acc_w = None
-        acc_m = [None] * (n_j - 1)
-        accg_tot = {g: None for g, _ in full_groups}
-        accg_j1 = {g: None for g, _ in full_groups}
-        row0 = {}
-        for s in range(n_s):
-            off = tuple(int(x) for x in dirs[s])
-            v = base[lane_shift(off)]
-            if off[0]:
-                v = pltpu.roll(v, N - off[0] if off[0] > 0 else -off[0],
-                               axis=0)
-            if any(nzf[g, j, s] for g, _ in row_groups for j in range(n_j)):
-                row0[s] = v[0:1, :]
-            term = wsum(w_ref, [s * n_j + j for j in range(n_j)]) * v
-            acc_w = term if acc_w is None else acc_w + term
-            for m in range(n_j - 1):
-                js = [j for j in range(m + 1, n_j) if nzs[s, j]]
-                if not js:
-                    continue
-                t2 = wsum(w_ref, [s * n_j + j for j in js]) * v
-                acc_m[m] = t2 if acc_m[m] is None else acc_m[m] + t2
-            for g, G in full_groups:
-                # fold the j-levels per direction: one FMA for the total
-                # weight, one more only when a j >= 1 term exists
-                js = [j for j in range(n_j) if nzf[g, j, s]]
-                if not js:
-                    continue
-                t3 = wsum(e_ref, [(g * n_j + j) * n_s + s for j in js]) * v
-                accg_tot[g] = (t3 if accg_tot[g] is None
-                               else accg_tot[g] + t3)
-                js1 = [j for j in js if j >= 1]
-                if js1:
-                    t4 = wsum(e_ref,
-                              [(g * n_j + j) * n_s + s for j in js1]) * v
-                    accg_j1[g] = (t4 if accg_j1[g] is None
-                                  else accg_j1[g] + t4)
-
-        dst = K0 * acc_w
-        for m in range(n_j - 1):
-            if acc_m[m] is not None:
-                dst = dst - shells[m] * acc_m[m]
-
-        for g, G in full_groups:
-            if accg_tot[g] is None:
-                continue
-            sigma = K0
-            for ci in G:
-                sigma = sigma * (coord[ci] == 0).astype(dt)
-            total = accg_tot[g]
-            if accg_j1[g] is not None:
-                total = total - shells[0] * accg_j1[g]
-            dst = dst - sigma * total
-
-        # x-containing groups: global row 0 only — compute on (1, L)
-        # slices and splice back with one sublane concatenate
-        rowfix = None
-        for g, G in row_groups:
-            sigma = K0[0:1, :]
-            for ci in G:
-                if ci == 0:
-                    continue
-                sigma = sigma * (coord[ci][0:1, :] == 0).astype(dt)
-            tot, j1 = None, None
-            for j in range(n_j):
-                for s in range(n_s):
-                    if not nzf[g, j, s]:
-                        continue
-                    w = e_ref[c, (g * n_j + j) * n_s + s]
-                    t3 = w * row0[s]
-                    tot = t3 if tot is None else tot + t3
-                    if j == 1:
-                        j1 = t3 if j1 is None else j1 + t3
-            if tot is None:
-                continue
-            total = tot if j1 is None else tot - shells[0][0:1, :] * j1
-            piece = sigma * total
-            rowfix = piece if rowfix is None else rowfix + piece
-        if rowfix is not None:
-            dst = jnp.concatenate([dst[0:1, :] - rowfix, dst[1:, :]],
-                                  axis=0)
-
-        dst_ref[0] = dst
-
-    return kernel, N, L
-
-
-def _pick_tx(N: int, L: int, n_live: int = 36) -> int:
-    """Largest row-tile height (multiple of 8, <= padded N) whose ~n_live
-    live block-sized arrays fit a ~80 MB VMEM budget."""
-    budget = 80 * 1024 * 1024
-    lanes = -(-L // 128) * 128
-    tx = 8
-    for cand in (8, 16, 32, 64, 128, 256):
-        if cand > -(-N // 8) * 8:
-            break
-        if n_live * cand * lanes * 4 <= budget:
-            tx = cand
-    return tx
-
-
-def _make_const_kernel(level: int, dim: int, pitch: int, n_j: int):
-    """Row-tiled streaming kernel: grid (C, NT), dst tile (TX, L).
-
-    Reads are built lane-roll-first so the (dy, dz) lane shifts are shared
-    across all directions (6 full-tile lane rolls instead of 14); the
-    dx = ±1 sublane shifts are then one concatenate per direction that
-    splices the halo row from the prev/next tile in the same op.  Weights
-    use the *full* face-correction scheme (face_tables_full) so every
-    out-of-tet read carries an exactly zero weight — wrapped rolls need
-    no masks.  Face corrections are confined: x-face terms run only on
-    the first tile (pl.when), y/z-face terms on lane sub-slices where the
-    layout allows.
-    """
-    n = 1 << level
-    N = n + 1
-    L = N * pitch if dim == 3 else N
-    dirs, _, _ = stencil_tables(dim)
-    n_s = dirs.shape[0]
-    nzs = _structural_nonzero(dim)
-    groups, *_ = face_tables_full(dim)
-    nzf = _face_nonzero_full(dim)
-    n_g = len(groups)
-    TX = _pick_tx(N, L)
-    NT = -(-N // TX)
-
-    def lane_shift(off):
-        return int(off[-1]) if dim == 2 else int(off[1]) * pitch + int(off[2])
-
-    # distinct (dy, dz) lane-shift classes shared across directions
-    lane_classes = sorted({lane_shift(dirs[s]) for s in range(n_s)})
-
-    def kernel(w_ref, e_ref, yz_ref, prv_ref, cur_ref, nxt_ref, dst_ref):
-        c = pl.program_id(0)
-        i = pl.program_id(1)
-        dt = dst_ref.dtype
-        rows = jax.lax.broadcasted_iota(jnp.int32, (TX, L), 0)
-        xs = rows + i * TX
-        ly = yz_ref[0, :][None, :]
-        lz = yz_ref[1, :][None, :]
-        in_z = lz < N if dim == 3 else (lz >= 0)
-        s_sum = xs + ly + lz if dim == 3 else xs + lz
-        K0 = ((s_sum <= n) & in_z).astype(dt)
-        shells = [
-            ((s_sum == n - m) & in_z).astype(dt) for m in range(n_j - 1)
-        ]
-
-        # Rows past N in the (padded) last tile hold unspecified values
-        # (NaN in interpret mode) — NaN * 0 would leak through the
-        # exact-zero weights, so select them to zero once up front; same
-        # for the spliced halo rows from the clamped prev/next tiles.
-        cur = jnp.where(xs < N, cur_ref[0], 0.0)
-        prow = (jnp.clip(i - 1, 0, NT - 1) * TX + TX - 1) < N
-        prv_row = jnp.where(prow, prv_ref[0, TX - 1:TX, :], 0.0)
-        nrow = (jnp.clip(i + 1, 0, NT - 1) * TX) < N
-        nxt_row = jnp.where(nrow, nxt_ref[0, 0:1, :], 0.0)
-
-        # lane-rolled bases, shared across all directions with the same
-        # (dy, dz); halo rows get the same 1-row lane roll (cheap)
-        def lroll(v, ls):
-            return v if ls == 0 else pltpu.roll(
-                v, v.shape[1] - ls if ls > 0 else -ls, axis=1)
-
-        base = {ls: lroll(cur, ls) for ls in lane_classes}
-        prv_base = {ls: lroll(prv_row, ls) for ls in lane_classes}
-        nxt_base = {ls: lroll(nxt_row, ls) for ls in lane_classes}
-
-        def read(s):
-            off = tuple(int(x) for x in dirs[s])
-            ls = lane_shift(off)
-            v = base[ls]
-            sx = off[0]
-            if sx == 1:
-                # out[r] = v[r + 1]; last row from the next tile
-                v = jnp.concatenate([v[1:TX], nxt_base[ls]], axis=0)
-            elif sx == -1:
-                # out[r] = v[r - 1]; first row from the prev tile
-                v = jnp.concatenate([prv_base[ls], v[: TX - 1]], axis=0)
-            return v
-
-        def wsum(ref, idxs):
-            w = ref[c, idxs[0]]
-            for k in idxs[1:]:
-                w = w + ref[c, k]
-            return w
-
-        # stream directions: one read, immediately folded into all
-        # accumulators that use it.  Only narrow slices of each read are
-        # kept for the confined corrections below (keeping all 15 full
-        # tiles live blows the VMEM stack).
-        acc_w = None
-        acc_m = [None] * (n_j - 1)
-        accg_tot = [None] * n_g
-        accg_j1 = [None] * n_g
-        Wmax = pitch if dim == 3 else 1
-        yslice = {}
-        row0 = {}
-        for s in range(n_s):
-            r = read(s)
-            yslice[s] = r[:, :Wmax]
-            row0[s] = r[0:1, :]
-            term = wsum(w_ref, [s * n_j + j for j in range(n_j)]) * r
-            acc_w = term if acc_w is None else acc_w + term
-            for m in range(n_j - 1):
-                js = [j for j in range(m + 1, n_j) if nzs[s, j]]
-                if not js:
-                    continue
-                t2 = wsum(w_ref, [s * n_j + j for j in js]) * r
-                acc_m[m] = t2 if acc_m[m] is None else acc_m[m] + t2
-            # full-tile face groups (those not confined below)
-            for g, G in enumerate(groups):
-                if not _confine_cheap(G, dim):
-                    for j in range(n_j):
-                        if not nzf[g, j, s]:
-                            continue
-                        w = e_ref[c, (g * n_j + j) * n_s + s]
-                        t3 = w * r
-                        if j <= 0:
-                            accg_tot[g] = (t3 if accg_tot[g] is None
-                                           else accg_tot[g] + t3)
-                        else:
-                            accg_tot[g] = (t3 if accg_tot[g] is None
-                                           else accg_tot[g] + t3)
-                            accg_j1[g] = (t3 if accg_j1[g] is None
-                                          else accg_j1[g] + t3)
-
-        dst = K0 * acc_w
-        for m in range(n_j - 1):
-            if acc_m[m] is not None:
-                dst = dst - shells[m] * acc_m[m]
-
-        # full-tile face corrections (e.g. the strided z = 0 plane in 3D)
-        coord = (xs, ly, lz) if dim == 3 else (xs, lz)
-        for g, G in enumerate(groups):
-            if _confine_cheap(G, dim) or accg_tot[g] is None:
-                continue
-            sigma = K0
-            for ci in G:
-                sigma = sigma * (coord[ci] == 0).astype(dt)
-            total = accg_tot[g]
-            if accg_j1[g] is not None:
-                total = total - shells[0] * accg_j1[g]
-            dst = dst - sigma * total
-
-        # confined face corrections: x-containing groups only touch global
-        # row 0 (tile i == 0); pure-lane groups use lane sub-slices.
-        def lane_corr(g, G):
-            """Correction on the lane slice [0:W) (y-face / 2D z-face)."""
-            W = pitch if (dim == 3 and G == (1,)) else 1
-            sl = slice(0, W)
-            sigma = K0[:, sl]
-            for ci in G:
-                sigma = sigma * (coord[ci][:, sl] == 0).astype(dt)
-            tot, j1 = None, None
-            for j in range(n_j):
-                for s in range(n_s):
-                    if not nzf[g, j, s]:
-                        continue
-                    w = e_ref[c, (g * n_j + j) * n_s + s]
-                    t3 = w * yslice[s][:, sl]
-                    tot = t3 if tot is None else tot + t3
-                    if j == 1:
-                        j1 = t3 if j1 is None else j1 + t3
-            if tot is None:
-                return None, sl
-            total = tot if j1 is None else tot - shells[0][:, sl] * j1
-            return sigma * total, sl
-
-        lane_groups = [
-            (g, G) for g, G in enumerate(groups)
-            if _confine_cheap(G, dim) and 0 not in G
-        ]
-        for g, G in lane_groups:
-            corrs, sl = lane_corr(g, G)
-            if corrs is not None:
-                # Mosaic has no scatter-add on values; widen the confined
-                # lane slice [0, W) back to L with a supported lax.pad.
-                dst = dst - jax.lax.pad(
-                    corrs, jnp.asarray(0.0, dt),
-                    [(0, 0, 0), (0, L - sl.stop, 0)])
-
-        # x-containing groups: only global row 0 -> first tile
-        xg = [(g, G) for g, G in enumerate(groups)
-              if _confine_cheap(G, dim) and 0 in G]
-        if xg:
-            rowfix = None
-            for g, G in xg:
-                sigma = K0[0:1, :]
-                for ci in G[1:] if G[0] == 0 else G:
-                    if ci == 0:
-                        continue
-                    sigma = sigma * (coord[ci][0:1, :] == 0).astype(dt)
-                tot, j1 = None, None
-                for j in range(n_j):
-                    for s in range(n_s):
-                        if not nzf[g, j, s]:
-                            continue
-                        w = e_ref[c, (g * n_j + j) * n_s + s]
-                        t3 = w * row0[s]
-                        tot = t3 if tot is None else tot + t3
-                        if j == 1:
-                            j1 = t3 if j1 is None else j1 + t3
-                if tot is None:
-                    continue
-                total = tot if j1 is None else tot - shells[0][0:1, :] * j1
-                piece = sigma * total
-                rowfix = piece if rowfix is None else rowfix + piece
-            if rowfix is not None:
-                fix = jnp.where(
-                    rows == 0, jnp.broadcast_to(rowfix, (TX, L)), 0.0
-                ).astype(dt)
-                first = (i == 0).astype(dt)
-                dst = dst - first * fix
-
-        dst_ref[0] = dst
-
-    return kernel, N, L, TX, NT
-
-
-def _confine_cheap(G, dim) -> bool:
-    """Face groups whose correction is computed on a confined slice:
-    x-containing groups (global row 0, first tile only) and lane-sliceable
-    pure-lane groups; in 3D the bare z-face (lanes l % pitch == 0) is
-    strided and stays full-tile."""
-    if 0 in G:
-        return True
-    if dim == 2:
-        return True  # G == (1,): lane 0
-    if G == (1,):
-        return True  # y-face: lanes [0, pitch)
-    if G == (1, 2):
-        return True  # y- and z-face: lane 0
-    return False  # G == (2,): strided z-face
-
-
-@functools.partial(jax.jit,
-                   static_argnames=("level", "dim", "pitch", "interpret"))
-def p1_const_apply_pallas(src2d, A, E, level: int, dim: int, pitch: int,
-                          interpret: bool = False):
-    """Per-cell constant-stencil apply (partial sums on interface rows).
-
-    src2d: (C, N, L); A: (C, n_s, n_j) from stencil_weights;
-    E: (C, n_G, n_j, n_s) from face_weights_full."""
-    C = src2d.shape[0]
-    dirs, _, n_j = stencil_tables(dim)
-    groups, *_ = face_tables_full(dim)
-    n_g, n_s = len(groups), dirs.shape[0]
-    w_flat = A.reshape(C, n_s * n_j).astype(src2d.dtype)
-    e_flat = E.reshape(C, n_g * n_j * n_s).astype(src2d.dtype)
-    N0 = (1 << level) + 1
-    L0 = N0 * pitch if dim == 3 else N0
-    if dim == 3:
-        y, z = flat.yz_maps(N0, pitch)
-        yz = np.stack([y, z]).astype(np.int32)  # (2, L)
-    else:
-        z = np.arange(N0, dtype=np.int32)
-        yz = np.stack([z, z])
-
-    if _whole_cell_ok(N0, L0):
-        kernel, N, L = _make_const_kernel_whole(level, dim, pitch, n_j)
-        blk = (1, N, L)
-        data = pl.BlockSpec(blk, lambda c, *_: (c, 0, 0),
-                            memory_space=pltpu.VMEM)
-        grid_spec = pltpu.PrefetchScalarGridSpec(
-            num_scalar_prefetch=2, grid=(C,),
-            in_specs=[
-                pl.BlockSpec((2, L), lambda c, *_: (0, 0),
-                             memory_space=pltpu.VMEM),
-                data,
-            ],
-            out_specs=data,
-        )
-        return pl.pallas_call(
-            kernel,
-            grid_spec=grid_spec,
-            out_shape=jax.ShapeDtypeStruct(src2d.shape, src2d.dtype),
-            cost_estimate=pl.CostEstimate(
-                flops=2 * 4 * n_s * C * N * L,
-                bytes_accessed=C * 4 * N * L * 2,
-                transcendentals=0,
-            ),
-            compiler_params=_compiler_params((1, N, L), n_arrays=45,
-                                             grid_rank=1),
-            interpret=interpret,
-        )(w_flat, e_flat, yz, src2d)
-
-    kernel, N, L, TX, NT = _make_const_kernel(level, dim, pitch, n_j)
-
-    blk = (1, TX, L)
-    data = lambda fi: pl.BlockSpec(
-        blk, lambda c, i, *_, fi=fi: (c, jnp.clip(i + fi, 0, NT - 1), 0),
-        memory_space=pltpu.VMEM)
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=2, grid=(C, NT),
-        in_specs=[
-            pl.BlockSpec((2, L), lambda c, i, *_: (0, 0),
-                         memory_space=pltpu.VMEM),
-            data(-1), data(0), data(1),
-        ],
-        out_specs=pl.BlockSpec(blk, lambda c, i, *_: (c, i, 0),
-                               memory_space=pltpu.VMEM),
-    )
-    return pl.pallas_call(
-        kernel,
-        grid_spec=grid_spec,
-        out_shape=jax.ShapeDtypeStruct(src2d.shape, src2d.dtype),
-        cost_estimate=pl.CostEstimate(
-            flops=2 * 4 * n_s * C * N * L,
-            bytes_accessed=C * 4 * N * L * 2,
-            transcendentals=0,
-        ),
-        compiler_params=_compiler_params((1, TX, L), n_arrays=52,
-                                         grid_rank=2),
-        interpret=interpret,
-    )(w_flat, e_flat, yz, src2d, src2d, src2d)

@@ -1,6 +1,6 @@
 """Constant-stencil P2 apply on the dense node grid.
 
-TPU-native analog of the reference's generated P2 stencil kernels
+Analog of the reference's generated P2 stencil kernels
 (reference: src/constant_stencil_operator/P2generatedKernels/ — 1243 files
 of vertex/edge-DoF stencil sweeps dispatched by P2ConstantOperator).
 
@@ -19,9 +19,9 @@ The base-validity constraints mirror the P1 fast path
   * coordinate faces: base_i >= 0 fails only for p_i = 0 with O_A_i = 2 —
     inclusion-exclusion over G <= supp2(O_A) with sign (-1)^(|G|+1).
 
-As in the P1 kernel the full-scheme weights are pointwise exact, so
-wrapped/aliased reads carry exactly zero coefficients and shifted reads
-need no masks. In 3D: 65 directions, 230 (parity, dir) interior weights.
+As in the P1 const stencil the full-scheme weights are pointwise exact, so
+aliased reads carry exactly zero coefficients and shifted reads need no
+masks. In 3D: 65 directions, 230 (parity, dir) interior weights.
 """
 
 from __future__ import annotations
@@ -29,15 +29,12 @@ from __future__ import annotations
 import functools
 import itertools
 
-import jax
 import jax.numpy as jnp
 import numpy as np
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
 from ..indexing import flat, micro
-from .p1_stencil import _compiler_params
 from ..operators.p2_elementwise import p2_node_offsets
+from .p1_const_stencil import ordered_scatter_add
 
 
 def _par_index(par, dim: int) -> int:
@@ -84,8 +81,8 @@ def p2_stencil_weights(elmats: jnp.ndarray, dim: int) -> jnp.ndarray:
     dirs, rows, cols, n_par, n_j = p2_stencil_tables(dim)
     C = elmats.shape[0]
     flatm = elmats.reshape(C, -1)
-    A = jnp.zeros((C, n_par * dirs.shape[0] * n_j), dtype=elmats.dtype)
-    A = A.at[:, cols].add(flatm[:, rows])
+    A = ordered_scatter_add(flatm[:, rows], cols,
+                            n_par * dirs.shape[0] * n_j)
     return A.reshape(C, n_par, dirs.shape[0], n_j)
 
 
@@ -130,9 +127,9 @@ def p2_face_weights(elmats: jnp.ndarray, dim: int) -> jnp.ndarray:
     dirs, _, _, n_par, n_j = p2_stencil_tables(dim)
     C = elmats.shape[0]
     flatm = elmats.reshape(C, -1)
-    E = jnp.zeros((C, len(groups) * n_par * dirs.shape[0] * n_j),
-                  dtype=elmats.dtype)
-    E = E.at[:, cols].add(flatm[:, rows] * jnp.asarray(signs, elmats.dtype))
+    E = ordered_scatter_add(
+        flatm[:, rows] * jnp.asarray(signs, elmats.dtype), cols,
+        len(groups) * n_par * dirs.shape[0] * n_j)
     return E.reshape(C, len(groups), n_par, dirs.shape[0], n_j)
 
 
@@ -187,266 +184,9 @@ def _mask_arrays_p2(level: int, dim: int, pitch: int):
     return K0, shells, faces, tuple(pars)
 
 
-# ---------------------------------------------------------------------------
-# Pallas kernel (sublane-tiled, same streaming structure as the P1 kernel)
-# ---------------------------------------------------------------------------
-
-_TX = 8
-
-
-def _confine_cheap_p2(G, dim) -> bool:
-    """Same confinement rules as the P1 kernel: x-groups on the first tile,
-    lane-sliceable y-groups; the bare 3D z-face stays full-tile."""
-    if 0 in G:
-        return True
-    if dim == 2 or G == (1,) or G == (1, 2):
-        return True
-    return False
-
-
-def _make_p2_kernel(level: int, dim: int, pitch: int):
-    n = 1 << level
-    M = 2 * n + 1
-    L = M * pitch if dim == 3 else M
-    dirs, _, _, n_par, n_j = p2_stencil_tables(dim)
-    groups, *_ = p2_face_tables(dim)
-    nzm, nzf = _nz_tables(dim)
-    n_s, n_g = dirs.shape[0], len(groups)
-    TX = _TX
-    NT = -(-M // TX)
-
-    def lane_shift(off):
-        return int(off[-1]) if dim == 2 else int(off[1]) * pitch + int(off[2])
-
-    def kernel(w_ref, e_ref, yz_ref, prv_ref, cur_ref, nxt_ref, dst_ref):
-        c = pl.program_id(0)
-        i = pl.program_id(1)
-        dt = dst_ref.dtype
-        rows = jax.lax.broadcasted_iota(jnp.int32, (TX, L), 0)
-        xs = rows + i * TX
-        ly = yz_ref[0, :][None, :]
-        lz = yz_ref[1, :][None, :]
-        in_z = lz < M if dim == 3 else (lz >= 0)
-        s_sum = xs + ly + lz if dim == 3 else xs + lz
-        K0 = ((s_sum <= 2 * n) & in_z).astype(dt)
-        shells = [((s_sum == 2 * n - m) & in_z).astype(dt) for m in range(2)]
-        coord = (xs, ly, lz) if dim == 3 else (xs, lz)
-        pb = lambda p, k: (p >> (dim - 1 - k)) & 1
-        par_masks = [
-            functools.reduce(
-                lambda a, b: a & b,
-                [(coord[k] % 2) == pb(p, k) for k in range(dim)],
-            ).astype(dt)
-            for p in range(n_par)
-        ]
-
-        # sanitize all three tiles once: rows past M hold unspecified values
-        # (NaN in interpret mode) that would leak through the exact-zero
-        # weights as NaN * 0
-        cur = jnp.where(xs < M, cur_ref[0], 0.0)
-        pxs = jnp.clip(i - 1, 0, NT - 1) * TX + rows
-        prv = jnp.where(pxs < M, prv_ref[0], 0.0)
-        nxs = jnp.clip(i + 1, 0, NT - 1) * TX + rows
-        nxt = jnp.where(nxs < M, nxt_ref[0], 0.0)
-
-        def read(s):
-            off = tuple(int(x) for x in dirs[s])
-            sx = off[0]
-            v = cur
-            if sx > 0:
-                rc = pltpu.roll(cur, TX - sx, axis=0)
-                rn = pltpu.roll(nxt, TX - sx, axis=0)
-                v = jnp.where(rows < TX - sx, rc, rn)
-            elif sx < 0:
-                rc = pltpu.roll(cur, -sx, axis=0)
-                rp = pltpu.roll(prv, -sx, axis=0)
-                v = jnp.where(rows >= -sx, rc, rp)
-            ls = lane_shift(off)
-            if ls:
-                v = pltpu.roll(v, L - ls if ls > 0 else -ls, axis=1)
-            return v
-
-        acc_w = [None] * n_par
-        acc_m = [[None, None] for _ in range(n_par)]
-        accg = {}
-        reads = {}
-        for s in range(n_s):
-            r = read(s)
-            reads[s] = r
-            for par in range(n_par):
-                if not nzm[par, s].any():
-                    continue
-                w = w_ref[c, (par * n_s + s) * n_j]
-                for j in range(1, n_j):
-                    w = w + w_ref[c, (par * n_s + s) * n_j + j]
-                term = w * r
-                acc_w[par] = term if acc_w[par] is None else acc_w[par] + term
-                for m in range(2):
-                    js = [j for j in range(m + 1, n_j) if nzm[par, s, j]]
-                    if not js:
-                        continue
-                    w2 = w_ref[c, (par * n_s + s) * n_j + js[0]]
-                    for j in js[1:]:
-                        w2 = w2 + w_ref[c, (par * n_s + s) * n_j + j]
-                    t2 = w2 * r
-                    acc_m[par][m] = (t2 if acc_m[par][m] is None
-                                     else acc_m[par][m] + t2)
-            # full-tile face groups (3D bare z-face)
-            for g, G in enumerate(groups):
-                if _confine_cheap_p2(G, dim):
-                    continue
-                for par in range(n_par):
-                    for j in range(n_j):
-                        if not nzf[g, par, s, j]:
-                            continue
-                        w3 = e_ref[c, ((g * n_par + par) * n_s + s)
-                                   * n_j + j]
-                        t3 = w3 * r
-                        for m in range(j + 1):
-                            k3 = (g, par, m)
-                            accg[k3] = (t3 if accg.get(k3) is None
-                                        else accg[k3] + t3)
-
-        dst = jnp.zeros((TX, L), dtype=dt)
-        for par in range(n_par):
-            if acc_w[par] is None:
-                continue
-            piece = K0 * acc_w[par]
-            for m in range(2):
-                if acc_m[par][m] is not None:
-                    piece = piece - shells[m] * acc_m[par][m]
-            dst = dst + par_masks[par] * piece
-
-        for g, G in enumerate(groups):
-            if _confine_cheap_p2(G, dim):
-                continue
-            sigma = K0
-            for ci in G:
-                sigma = sigma * (coord[ci] == 0).astype(dt)
-            corr = None
-            for par in range(n_par):
-                if accg.get((g, par, 0)) is None:
-                    continue
-                piece = accg[(g, par, 0)]
-                for m in (1, 2):
-                    a = accg.get((g, par, m))
-                    if a is not None:
-                        piece = piece - shells[m - 1] * a
-                piece = par_masks[par] * piece
-                corr = piece if corr is None else corr + piece
-            if corr is not None:
-                dst = dst - sigma * corr
-
-        # confined groups on sub-slices
-        def corr_slice(g, G, sl, row_sel=None):
-            rsel = row_sel if row_sel is not None else slice(None)
-            sigma = K0[rsel, sl]
-            for ci in G:
-                sigma = sigma * (coord[ci][rsel, sl] == 0).astype(dt)
-            corr = None
-            for par in range(n_par):
-                acc = [None, None, None]
-                for s in range(n_s):
-                    for j in range(n_j):
-                        if not nzf[g, par, s, j]:
-                            continue
-                        w3 = e_ref[c, ((g * n_par + par) * n_s + s)
-                                   * n_j + j]
-                        t3 = w3 * reads[s][rsel, sl]
-                        for m in range(j + 1):
-                            acc[m] = t3 if acc[m] is None else acc[m] + t3
-                if acc[0] is None:
-                    continue
-                piece = acc[0]
-                for m in (1, 2):
-                    if acc[m] is not None:
-                        piece = piece - shells[m - 1][rsel, sl] * acc[m]
-                piece = par_masks[par][rsel, sl] * piece
-                corr = piece if corr is None else corr + piece
-            return None if corr is None else sigma * corr
-
-        lane_groups = [(g, G) for g, G in enumerate(groups)
-                       if _confine_cheap_p2(G, dim) and 0 not in G]
-        for g, G in lane_groups:
-            W = pitch if (dim == 3 and G == (1,)) else 1
-            sl = slice(0, W)
-            corr = corr_slice(g, G, sl)
-            if corr is not None:
-                # Mosaic has no scatter-add on values; widen the confined
-                # lane slice [0, W) back to L with a supported lax.pad.
-                dst = dst - jax.lax.pad(
-                    corr, jnp.asarray(0.0, dt),
-                    [(0, 0, 0), (0, L - W, 0)])
-
-        xg = [(g, G) for g, G in enumerate(groups)
-              if _confine_cheap_p2(G, dim) and 0 in G]
-        if xg:
-            rowfix = None
-            for g, G in xg:
-                corr = corr_slice(g, G, slice(None), row_sel=slice(0, 1))
-                if corr is not None:
-                    rowfix = corr if rowfix is None else rowfix + corr
-            if rowfix is not None:
-                fix = jnp.where(rows == 0,
-                                jnp.broadcast_to(rowfix, (TX, L)), 0.0)
-                dst = dst - (i == 0).astype(dt) * fix.astype(dt)
-
-        dst_ref[0] = dst
-
-    return kernel, M, L, TX, NT
-
-
-@functools.partial(jax.jit,
-                   static_argnames=("level", "dim", "pitch", "interpret"))
-def p2_const_apply_pallas(src2d, A, E, level: int, dim: int, pitch: int,
-                          interpret: bool = False):
-    """Tiled parity-stencil P2 apply (partial sums on interface rows)."""
-    C = src2d.shape[0]
-    dirs, _, _, n_par, n_j = p2_stencil_tables(dim)
-    groups, *_ = p2_face_tables(dim)
-    n_s, n_g = dirs.shape[0], len(groups)
-    kernel, M, L, TX, NT = _make_p2_kernel(level, dim, pitch)
-    w_flat = A.reshape(C, n_par * n_s * n_j).astype(src2d.dtype)
-    e_flat = E.reshape(C, n_g * n_par * n_s * n_j).astype(src2d.dtype)
-    if dim == 3:
-        y, z = flat.yz_maps(M, pitch)
-        yz = np.stack([y, z]).astype(np.int32)
-    else:
-        z = np.arange(M, dtype=np.int32)
-        yz = np.stack([z, z])
-
-    blk = (1, TX, L)
-    data = lambda fi: pl.BlockSpec(
-        blk, lambda c, i, *_, fi=fi: (c, jnp.clip(i + fi, 0, NT - 1), 0),
-        memory_space=pltpu.VMEM)
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=2, grid=(C, NT),
-        in_specs=[
-            pl.BlockSpec((2, L), lambda c, i, *_: (0, 0),
-                         memory_space=pltpu.VMEM),
-            data(-1), data(0), data(1),
-        ],
-        out_specs=pl.BlockSpec(blk, lambda c, i, *_: (c, i, 0),
-                               memory_space=pltpu.VMEM),
-    )
-    return pl.pallas_call(
-        kernel,
-        grid_spec=grid_spec,
-        out_shape=jax.ShapeDtypeStruct(src2d.shape, src2d.dtype),
-        cost_estimate=pl.CostEstimate(
-            flops=2 * 4 * n_s * C * M * L,
-            bytes_accessed=C * 4 * M * L * 2,
-            transcendentals=0,
-        ),
-        compiler_params=_compiler_params((1, TX, L), n_arrays=64,
-                                         grid_rank=2),
-        interpret=interpret,
-    )(w_flat, e_flat, yz, src2d, src2d, src2d)
-
-
 def p2_const_apply_xla(src2d, A, E, level: int, dim: int, pitch: int):
-    """Pure-XLA parity-stencil P2 apply (CPU path; partial sums on
-    interface rows). src2d: (C, M, lanes) node block."""
+    """Parity-stencil P2 apply in plain XLA (partial sums on interface
+    rows). src2d: (C, M, lanes) node block."""
     dirs, _, _, n_par, n_j = p2_stencil_tables(dim)
     groups, *_ = p2_face_tables(dim)
     nzm, nzf = _nz_tables(dim)

@@ -1,11 +1,11 @@
 """Coarse macro-mesh description and inline generators.
 
-TPU-native analog of the reference's MeshInfo
+Analog of the reference's MeshInfo
 (reference: src/hyteg/mesh/MeshInfo.hpp:221-637): an in-memory simplicial
 coarse mesh (triangles in 2D, tetrahedra in 3D) from which the distributed
 storage and all per-level structured micro-grids are built. Unlike the
 reference (per-primitive object graph), everything here is flat numpy:
-``points (V,3)``, ``elements (C, dim+1)`` — the shape the sharded TPU
+``points (V,3)``, ``elements (C, dim+1)`` — the shape the sharded
 storage wants.
 """
 

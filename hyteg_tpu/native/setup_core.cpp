@@ -1,8 +1,8 @@
 // Native setup core: host-side hot paths of the mesh runtime.
 //
-// TPU-native counterpart of the reference's native (C++) setup
+// Counterpart of the reference's native (C++) setup
 // infrastructure (reference: src/hyteg/primitivestorage/ and the waLBerla
-// core the reference builds on). The TPU compute path is JAX/XLA/Pallas;
+// core the reference builds on). The compute path is JAX/XLA;
 // this library accelerates the *setup* paths that run on the host per
 // storage construction / re-balance: space-filling-curve encoding, sorting
 // and weighted partitioning over macro-cells. Exposed via a C ABI and

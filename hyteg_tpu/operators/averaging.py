@@ -1,6 +1,6 @@
 """Coefficient averaging schemes for variable-coefficient operators.
 
-TPU analog of the reference's coefficient averaging for quadrature-free
+Analog of the reference's coefficient averaging for quadrature-free
 variable-coefficient forms (reference:
 src/hyteg/forms/CoefficientAveraging.hpp — ARITHMETIC / HARMONIC /
 GEOMETRIC vertex averaging per element).  Each element's matrix is

@@ -1,6 +1,6 @@
 """DG operators: facet-coupled SIP Laplace (DG1) and P0 upwind advection.
 
-TPU-native redesign of the reference's DGOperator
+Redesign of the reference's DGOperator
 (reference: src/hyteg/dgfunctionspace/DGOperator.hpp — volume, inner-facet
 and Dirichlet-facet forms) and the P0/FV upwind transport
 (src/hyteg/composites/ — upwind transport operators).

@@ -1,6 +1,6 @@
 """Matrix-free N1E1 curl-curl / mass operators on the dense node grid.
 
-TPU-native redesign of the reference's N1E1 operator stack
+Redesign of the reference's N1E1 operator stack
 (reference: src/hyteg/elementwiseoperators/N1E1ElementwiseOperator.hpp and
 the curl-curl forms under src/hyteg/forms/form_hyteg_generated/n1e1/).
 Whitney basis on an affine micro-tet with vertices (x_0..x_3), edge (a, b)

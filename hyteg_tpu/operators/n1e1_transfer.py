@@ -1,6 +1,6 @@
 """N1E1 (edge-element) grid transfers: Whitney-form interpolation.
 
-TPU-native analog of the reference's edge-element transfers
+Analog of the reference's edge-element transfers
 (reference: src/hyteg/gridtransferoperators/N1E1toN1E1Prolongation.cpp,
 N1E1toN1E1Restriction.cpp): the canonical H(curl) prolongation takes the
 coarse Whitney field u_c = sum_E c_E W_E and assigns every fine edge its

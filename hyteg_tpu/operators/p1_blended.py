@@ -50,9 +50,9 @@ def laplace_elmats_scalar(verts):
     verts: nested [b][j] of (...) arrays (nv=4 vertices x 3 components);
     returns nested [a][b] of (...) arrays — every op runs on the large
     flat layout. The generic ``forms.laplace_form`` evaluates on arrays
-    with TRAILING (nv, dim) axes, whose minor-dim-3 tiles waste ~40x on
-    TPU (27.5 ms per element class at shell level 3, measured round 5);
-    this component form is the same math at full lane utilization."""
+    with TRAILING (nv, dim) axes, whose minor dimension of 3 pads badly
+    in tiled layouts; this component form is the same math on the large
+    flat layout."""
     e = [[verts[k + 1][j] - verts[0][j] for j in range(3)]
          for k in range(3)]  # e[k][j]: component j of edge k (J columns)
     # cof[j][k] = cofactor of J[j][k] (J[j][k] = e[k][j])
@@ -265,9 +265,9 @@ class P1BlendedOperator:
     def coords(self):
         """Blended micro-vertex field, recomputed per trace: materializing
         it eagerly would bake an O(C * N * lanes * 3) constant into every
-        jitted program using this operator (34 MB at shell level 3 — large
-        enough to kill remote TPU compiles); in-trace it derives from the
-        tiny cell-vertex array plus the small reference grid."""
+        jitted program using this operator (34 MB at shell level 3); in
+        the trace it derives from the tiny cell-vertex array plus the
+        small reference grid."""
         return blended_coords(self.space, self.gmap, self.shard)
 
     def apply_raw(self, x, sd=None, axis_name=None):
@@ -300,7 +300,7 @@ class P1BlendedOperator:
 # LSQP surrogate operator (reference: src/hyteg/polynomial/LSQPInterpolator,
 # P1SurrogateOperator.hpp:36-118): approximate each of the 15 stencil-weight
 # fields of the blended operator by a low-degree polynomial in the reference
-# coordinates, least-squares fitted — evaluation is pure VPU work.
+# coordinates, least-squares fitted — evaluation is pure elementwise work.
 # ---------------------------------------------------------------------------
 
 

@@ -1,6 +1,6 @@
 """Matrix-free P1 elementwise operators on structured micro-grids.
 
-TPU-native redesign of the reference's hot loop
+Redesign of the reference's hot loop
 (reference: src/hyteg/elementwiseoperators/P1ElementwiseOperator.cpp:88-253
 and the generated constant-stencil kernels,
 src/constant_stencil_operator/P1generatedKernels/
@@ -12,12 +12,11 @@ matrix is constant over the macro-cell (affine geometry), so
     dst[base + off_t[a]] += sum_b elMat[c, t, a, b] * src[base + off_t[b]]
 
 over all valid base positions — a sum of *shifted dense multiply-adds* over
-the flat (C, N, N*pitch) block, masked to the per-class base region. On TPU
-this is
-bandwidth-bound either way, so the flop overhead vs. an ideal 15-point
-stencil is free while staying exact for arbitrary per-cell geometry — the
-same code path serves constant, variable-coefficient and (via per-element
-rescaling) blended operators.
+the flat (C, N, N*pitch) block, masked to the per-class base region.  The
+apply is bandwidth-bound either way, so the flop overhead vs. an ideal
+15-point stencil is cheap while staying exact for arbitrary per-cell
+geometry — the same code path serves constant, variable-coefficient and
+(via per-element rescaling) blended operators.
 """
 
 from __future__ import annotations
@@ -32,12 +31,6 @@ from ..core.types import BoundaryCondition, DoFType, FLAG_INNER, UpdateType
 from ..functions.p1 import P1Function, P1ShardData, P1Space
 from ..indexing import flat, micro
 from .averaging import coeff_average
-
-
-def _use_pallas() -> bool:
-    from ..kernels.p1_stencil import pallas_available
-
-    return pallas_available()
 
 
 def _shift_read(u, off, pitch: int, dim: int, ncomp: int = 0):
@@ -251,21 +244,10 @@ class P1ElementwiseOperator:
             sub.elmats = jnp.take(self.elmats, cells, axis=0)
             return sub._apply_local(x, coeff)
         if coeff is None and P1ElementwiseOperator.use_const_stencil:
-            from ..kernels.p1_const_stencil import (
-                p1_const_apply_pallas, p1_const_apply_xla)
+            from ..kernels.p1_const_stencil import p1_const_apply_xla
 
-            if _use_pallas():
-                return p1_const_apply_pallas(x, self.stencil,
-                                             self.stencil_face, sp.level,
-                                             sp.dim, sp.pitch)
             return p1_const_apply_xla(x, self.stencil, sp.level, sp.dim,
                                       sp.pitch, E=self.stencil_face)
-        if _use_pallas():
-            from ..kernels.p1_stencil import p1_apply_local_pallas_flat
-
-            return p1_apply_local_pallas_flat(x, self.elmats, sp.level,
-                                              sp.dim, sp.pitch, coeff,
-                                              self.coeff_avg)
         return p1_apply_local(x, self.elmats, sp.level, sp.dim, sp.pitch,
                               coeff, self.coeff_avg)
 
@@ -330,16 +312,8 @@ class P1ElementwiseOperator:
     def diagonal_raw(self, coeff=None, sd=None, axis_name=None) -> jnp.ndarray:
         sp = self.space
         sd = sp.resolve_sd(sd, self.shard)
-        if _use_pallas():
-            from ..kernels.p1_stencil import p1_diagonal_local_pallas_flat
-
-            d = p1_diagonal_local_pallas_flat(self.elmats, sp.level, sp.dim,
-                                              sp.pitch, False, coeff,
-                                              self.coeff_avg)
-        else:
-            d = p1_diagonal_local(self.elmats, sp.level, sp.dim,
-                                  sp.block_shape, sp.pitch, coeff,
-                                  self.coeff_avg)
+        d = p1_diagonal_local(self.elmats, sp.level, sp.dim, sp.block_shape,
+                              sp.pitch, coeff, self.coeff_avg)
         return sp.exchange_add(d, sd, axis_name)
 
     def inverse_diagonal(self, coeff=None, sd=None, axis_name=None) -> jnp.ndarray:

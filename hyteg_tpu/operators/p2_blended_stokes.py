@@ -13,7 +13,7 @@ here ONE matrix-free formulation covers every geometry map:
   * element matrices are never materialized: the apply evaluates the
     quadrature loop per class over ALL element positions at once, with
     physical gradients g_A(q) = J^{-T} ghat_A(q) built from closed-form
-    3x3 inverses (operators/forms.py) — the TPU analog of the
+    3x3 inverses (operators/forms.py) — the analog of the
     reference's per-element quadrature kernels,
   * the viscosity field enters by element-vertex-mean averaging
     (reference: CoefficientQuadratureAveraging arithmetic mode).

@@ -1,6 +1,6 @@
 """Matrix-free P2 elementwise operators on the dense node grid.
 
-TPU-native redesign of the reference's P2 operator stack
+Redesign of the reference's P2 operator stack
 (reference: src/hyteg/elementwiseoperators/P2ElementwiseOperator.cpp and the
 1243 generated P2 stencil kernel files under src/constant_stencil_operator/
 P2generatedKernels/). On the level-(L+1) node grid, micro-element class t
@@ -196,13 +196,10 @@ def p2_diagonal_local(elmats, level: int, dim: int, block_shape,
 class P2ElementwiseOperator:
     """P2 -> P2 operator (reference: P2ElementwiseOperator).
 
-    On TPU, constant-coefficient applies route through the parity-resolved
-    node-grid stencil kernel (kernels/p2_const_stencil.py — the analog of
-    the reference's 1243 generated P2 stencil kernels under
-    src/constant_stencil_operator/P2generatedKernels/)."""
-
-    #: module-wide switch for the constant-stencil fast path
-    use_const_stencil: bool = True
+    Every apply takes the general strided path ``p2_apply_local``.  The
+    parity-resolved stencil (kernels/p2_const_stencil.py) computes the same
+    constant-coefficient apply but is slower on an H100 at 2.1M DoFs, so
+    nothing routes to it."""
 
     def __init__(self, space: P2Space, kind: str = "laplace", shard: int = 0,
                  elmats=None, form=None):
@@ -211,11 +208,6 @@ class P2ElementwiseOperator:
         if elmats is None:
             elmats = compute_p2_elmats(space, kind, form=form)
         self.elmats = elmats
-        from ..kernels.p2_const_stencil import (p2_face_weights,
-                                                p2_stencil_weights)
-
-        self.stencil = p2_stencil_weights(elmats, space.dim)
-        self.stencil_face = p2_face_weights(elmats, space.dim)
 
     @classmethod
     def from_shard_data(cls, space: P2Space, kind: str, sd: P1ShardData):
@@ -224,14 +216,6 @@ class P2ElementwiseOperator:
 
     def _apply_local(self, x, coeff):
         sp = self.space
-        if coeff is None and P2ElementwiseOperator.use_const_stencil:
-            from ..kernels.p1_stencil import pallas_available
-            from ..kernels.p2_const_stencil import p2_const_apply_pallas
-
-            if pallas_available():
-                return p2_const_apply_pallas(x, self.stencil,
-                                             self.stencil_face, sp.level,
-                                             sp.dim, sp.pitch)
         return p2_apply_local(x, self.elmats, sp.level, sp.dim, sp.pitch,
                               coeff)
 

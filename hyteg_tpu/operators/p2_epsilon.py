@@ -1,6 +1,6 @@
 """P2 vector epsilon / full-viscous operators (variable viscosity).
 
-TPU-native analog of the reference's epsilon and full-Stokes operator
+Analog of the reference's epsilon and full-Stokes operator
 families (reference: src/hyteg/forms/form_hyteg_manual/ and the generated
 epsilon/full_stokes operators listed under src/hyteg_operators/;
 src/hyteg/elementwiseoperators/P2ElementwiseBlendingEpsilonOperator et al).

@@ -1,6 +1,6 @@
 """Inter-level grid transfer operators (P1 linear P/R + injection).
 
-TPU-native redesign of the reference's grid transfers
+Redesign of the reference's grid transfers
 (reference: src/hyteg/gridtransferoperators/P1toP1LinearProlongation.hpp,
 P1toP1LinearRestriction.hpp and the generated kernels under
 gridtransferoperators/generatedKernels/).
@@ -13,13 +13,11 @@ edge ends over the fine grid turns both directions into ONE symmetric
     P:        u_f = S expand(u_c)        (zero-interleave then S)
     R = P^T:  r_c = decimate(S r_f)      (sample even positions)
 
-TPU lowering (round-5 profile): strided ``[::2]`` access on the minor
-axes lowers to element gathers (a level-7 transfer pair cost 439 ms on
-the box path before the same rewrite). The stencil runs on the exact 3D
-view (C, N, N, pitch) — per-axis pad/slice shifts, no lane aliasing, one
-fused XLA pass — and decimation/expansion are a cheap major-axis slice
-plus one-hot band-matrix einsums over the two minor axes (MXU, exact at
-HIGHEST precision).
+The stencil runs on the exact 3D view (C, N, N, pitch) — per-axis
+pad/slice shifts, no lane aliasing, one fused XLA pass — and
+decimation/expansion are a cheap major-axis slice plus one-hot
+band-matrix einsums over the two minor axes (exact at HIGHEST
+precision), which avoid strided ``[::2]`` access on the minor axes.
 
 Restriction pre-scales fine interface replicas by 1/multiplicity so each
 fine DoF contributes exactly once globally, then exchanges the coarse

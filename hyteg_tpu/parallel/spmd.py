@@ -1,10 +1,10 @@
 """Multi-device SPMD execution over a JAX device mesh.
 
-TPU-native analog of the reference's MPI distribution
+Analog of the reference's MPI distribution
 (reference: src/hyteg/primitivestorage/PrimitiveStorage.cpp:62-140 +
 communication/BufferedCommunication.*): macro-cells are sharded over a 1-D
 ``cells`` mesh axis via shard_map; all interface exchanges become
-``psum`` collectives over that axis riding ICI (see P1Space.exchange_*).
+``psum`` collectives over that axis (see P1Space.exchange_*).
 
 The per-shard slot maps are fed in as arrays sharded along their leading
 (device) axis, so the same kernels run single-device (static maps) and
@@ -21,10 +21,7 @@ import jax.numpy as jnp
 import numpy as np
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
-try:  # jax >= 0.5 exposes shard_map at top level
-    shard_map = jax.shard_map
-except AttributeError:  # pragma: no cover
-    from jax.experimental.shard_map import shard_map  # type: ignore
+shard_map = jax.shard_map
 
 from ..core.types import BoundaryCondition, DoFType, FLAG_INNER
 from ..functions.p1 import P1ShardData, P1Space

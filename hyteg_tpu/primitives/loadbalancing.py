@@ -1,6 +1,6 @@
 """Load balancers + primitive migration over the sharded macro-cell storage.
 
-TPU-native equivalents of the reference's balancers
+Equivalents of the reference's balancers
 (reference: src/hyteg/primitivestorage/loadbalancing/SimpleBalancer.hpp:53-77
 — roundRobin/roundRobinVolume/greedy/allPrimitivesOnRoot, and the SFC
 balancer of adaptive refinement, src/hyteg/adaptiverefinement/mesh.hpp:195)

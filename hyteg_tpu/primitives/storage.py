@@ -1,6 +1,6 @@
 """Sharded macro-cell storage + per-level DoF/interface maps.
 
-TPU-native re-design of the reference's distributed mesh runtime
+Re-design of the reference's distributed mesh runtime
 (reference: src/hyteg/primitivestorage/PrimitiveStorage.cpp:62-140 and the
 PackInfo halo-exchange machinery, src/hyteg/communication/PackInfo.hpp:43-183).
 
@@ -16,7 +16,7 @@ exchange built from precomputed index maps:
 
 so the additive halo exchange of the reference (pack -> MPI -> unpack-add)
 becomes ``segment_sum`` over slots + ``psum`` over the device mesh + gather —
-pure XLA collectives riding ICI.
+pure XLA collectives.
 
 Global DoF numbering follows the owner-primitive scheme of the reference
 (macro-vertex / macro-edge / macro-face / cell-interior blocks), using

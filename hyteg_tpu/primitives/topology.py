@@ -3,7 +3,7 @@
 Flat-array analog of the reference's primitive graph
 (reference: src/hyteg/primitives/, src/hyteg/primitivestorage/
 SetupPrimitiveStorage.cpp:86). Instead of per-primitive objects with
-128-bit ids and neighborhood lists, we keep numpy index arrays: the TPU
+128-bit ids and neighborhood lists, we keep numpy index arrays: the
 runtime only needs (a) canonical sub-simplex enumeration to build global
 DoF numbering and interface maps and (b) per-primitive boundary flags.
 """
@@ -68,8 +68,8 @@ def build_topology(mesh: MeshInfo) -> MacroTopology:
     # rule). This makes the per-cell Kuhn micro-refinement conforming across
     # every shared face/edge and turns all interface frame transforms into
     # identities (every face triple / edge pair of a sorted cell is itself
-    # sorted) — the exchange fast paths in functions/ifc_dense.py and
-    # tetpair/small.py rely on it. P1 spaces are insensitive to the
+    # sorted) — the exchange fast path in functions/ifc_dense.py relies on
+    # it. P1 spaces are insensitive to the
     # orientation change (forms use |det J|).
     elements = np.sort(np.asarray(mesh.elements, dtype=np.int64), axis=1)
     edges = _unique_subsimplices(elements, 2)

@@ -2,7 +2,8 @@
 
 Reference: the generated colored GS/SOR kernels of
 src/constant_stencil_operator/ (forward/backward sweeps per micro-grid).
-Sequential sweeps don't map to TPUs; the classic parallel substitute is
+Sequential sweeps don't map to data-parallel hardware; the classic parallel
+substitute is
 multi-color GS: every P1 stencil direction has at least one odd component,
 so the 8 parity classes (x%2, y%2, z%2) are an exact coloring — updating
 one color at a time is a true Gauss-Seidel sweep with 8 residual applies.

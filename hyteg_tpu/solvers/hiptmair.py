@@ -1,6 +1,6 @@
 """Hiptmair hybrid smoother for H(curl) (N1E1) problems.
 
-TPU-native redesign of the reference's HybridSmoother
+Redesign of the reference's HybridSmoother
 (reference: src/mixed_operator/HybridSmoother.hpp): point smoothing in the
 edge space is blind to the large gradient kernel of the curl-curl operator,
 so each sweep adds a correction in the potential space,
@@ -12,7 +12,7 @@ so each sweep adds a correction in the potential space,
 
 with G the discrete gradient P1 -> N1E1. The reference plugs arbitrary
 sub-smoothers into both halves; here both are weighted Jacobi (the
-TPU-idiomatic choice; Chebyshev acceleration composes on top).
+data-parallel choice; Chebyshev acceleration composes on top).
 """
 
 from __future__ import annotations

@@ -1,11 +1,11 @@
 """Mixed-precision iterative refinement.
 
-TPU-native equivalent of the reference's mixed-precision configuration
+Equivalent of the reference's mixed-precision configuration
 (reference: tests/hyteg/mixedPrecision/mixedPrecisionIterativeRefinement.cpp
-— function spaces templated on ValueType, refined in higher precision). On
-TPU the natural split is bfloat16 for the bandwidth-bound inner solver
-(doubling effective HBM throughput of every stencil sweep) and float32 for
-the outer residual/accumulation:
+— function spaces templated on ValueType, refined in higher precision). The
+natural split is bfloat16 for the bandwidth-bound inner solver (half the
+bytes of every stencil sweep) and float32 for the outer
+residual/accumulation:
 
     r_k = b - A x_k            (f32 matvec)
     d_k = solve_lo(r_k)        (bf16 inner solver, approximate)

@@ -6,7 +6,7 @@ Helpers.cpp:103-173): GMG V-cycles on the P2-P1 block system with an
 inexact Uzawa smoother (velocity sub-smoother on the viscous block, lumped
 pressure-mass update) and a MINRES coarse solve. The sequential
 Gauss-Seidel velocity sweeps of the reference become Chebyshev/Jacobi
-sweeps (TPU-idiomatic)."""
+sweeps (data-parallel)."""
 
 from __future__ import annotations
 

@@ -1,6 +1,6 @@
 """BoxDomain: a box-structured Kuhn-tet macro aggregated into one grid.
 
-The TPU-native analog of the reference's structured cuboid meshes
+The analog of the reference's structured cuboid meshes
 (reference: src/hyteg/mesh/MeshInfo.hpp meshCuboid + SetupPrimitiveStorage):
 instead of 6*mx*my*mz macro-tets with padded per-tet blocks and interface
 exchange, the whole domain is ONE dense node grid

@@ -11,8 +11,6 @@ separate loops and shifted reads need no masks.
 
 from __future__ import annotations
 
-import functools
-
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -20,12 +18,6 @@ import numpy as np
 from ..operators import forms
 from . import kuhn
 from .box import BoxDomain
-
-
-def _use_pallas() -> bool:
-    from ..kernels.p1_stencil import pallas_available
-
-    return pallas_available()
 
 
 def shift_read(u: jnp.ndarray, d, Z: int) -> jnp.ndarray:
@@ -65,22 +57,32 @@ class BoxStencilOperator:
     # -- apply ----------------------------------------------------------------
 
     def apply_raw(self, u: jnp.ndarray) -> jnp.ndarray:
-        """Exact A u on every node (including boundary rows)."""
-        if _use_pallas():
-            from ..kernels.box_stencil import box_apply_pallas
+        """Exact A u on every node (including boundary rows).
 
-            return box_apply_pallas(u, self.w_vecs, self.domain.dims)
-        return self._apply_xla(u)
+        Arrays placed on a CUDA device take the Triton kernel
+        (kernels/box_stencil.py); every other platform takes the XLA
+        formulation.  The choice is made when the computation is lowered
+        for its platform."""
+        from ..kernels.box_stencil import box_apply_triton
+
+        return jax.lax.platform_dependent(
+            u,
+            cuda=lambda v: box_apply_triton(v, self.w_vecs,
+                                            self.domain.dims),
+            default=self._apply_xla)
 
     def _apply_xla(self, u: jnp.ndarray) -> jnp.ndarray:
+        """Plain XLA apply, the reference for the kernel.  Storage may be
+        bfloat16; the sums are taken in float32 either way."""
         X, Y, Z = self.domain.dims
         dirs = kuhn.stencil_dirs()
-        w = self.w_vecs.astype(u.dtype)
+        w = self.w_vecs.astype(jnp.float32)
+        uf = u.astype(jnp.float32)
         bulk = None
         row0 = None
         rowl = None
         for s in range(dirs.shape[0]):
-            r = shift_read(u, dirs[s], Z)
+            r = shift_read(uf, dirs[s], Z)
             t = w[0, s][None, :] * r
             bulk = t if bulk is None else bulk + t
             t0 = w[1, s] * r[0]
@@ -89,7 +91,7 @@ class BoxStencilOperator:
             rowl = tl if rowl is None else rowl + tl
         return jnp.concatenate(
             [row0[None], bulk[1 : X - 1], rowl[None]], axis=0
-        )
+        ).astype(u.dtype)
 
     def gemv(self, u, y, alpha=1.0, beta=1.0) -> jnp.ndarray:
         """alpha * A u + beta * y (fused epilogue under jit)."""

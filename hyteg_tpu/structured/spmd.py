@@ -3,7 +3,7 @@
 Domain decomposition by x-row slabs over a 1-D ``rows`` mesh axis.  The
 halo exchange is NEIGHBOR-WISE: each device ppermutes exactly one grid
 row to each adjacent device per apply — O(local interface) traffic, the
-TPU analog of the reference's nearest-neighbor PackInfo exchange
+Analog of the reference's nearest-neighbor PackInfo exchange
 (reference: src/hyteg/communication/PackInfo.hpp:43-183,
 BufferedCommunication.hpp:92-119) instead of any global collective.
 """
@@ -17,10 +17,7 @@ import jax.numpy as jnp
 import numpy as np
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
-try:  # jax >= 0.5 exposes shard_map at top level
-    shard_map = jax.shard_map
-except AttributeError:  # pragma: no cover
-    from jax.experimental.shard_map import shard_map  # type: ignore
+shard_map = jax.shard_map
 
 from . import kuhn
 from .box import BoxDomain
@@ -158,8 +155,8 @@ class SpmdBoxOperator:
 # sharded geometric multigrid (the 1e9-DoF path)
 # ---------------------------------------------------------------------------
 #
-# Strategy: the stencil apply runs as the shard_map Pallas/ppermute kernel
-# above on padded row-slabs; everything else (Chebyshev algebra, grid
+# Strategy: the stencil apply runs as the shard_map/ppermute sweep above
+# on padded row-slabs; everything else (Chebyshev algebra, grid
 # transfers, dot products) is written as global-view jnp ops with
 # NamedSharding constraints — GSPMD partitions the stride-2 slices and
 # shifts of structured/transfer.py and inserts the neighbor collectives

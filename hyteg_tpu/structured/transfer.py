@@ -11,12 +11,11 @@ monotone dirs:
     R = P^T:  r_c = decimate(S r_f)          (sample even positions)
     P:        u_f = S expand(u_c)            (zero-interleave then S)
 
-TPU lowering note (round-5 profile): strided ``[::2]`` slicing on the
-minor axes lowers to element gathers — a single level-7 restrict cost
-439 ms, 550x the stencil work. Decimation/expansion therefore run as
-one-hot band-matrix einsums over the two minor axes (MXU work, exact:
-HIGHEST-precision selection) plus a cheap major-axis slice/interleave;
-the 15-shift stencil is a pad/slice/add chain XLA fuses into one pass.
+Decimation/expansion run as one-hot band-matrix einsums over the two
+minor axes (exact: HIGHEST-precision selection) plus a cheap major-axis
+slice/interleave, which avoids strided ``[::2]`` slicing on the minor
+axes; the 15-shift stencil is a pad/slice/add chain XLA fuses into one
+pass.
 """
 
 from __future__ import annotations

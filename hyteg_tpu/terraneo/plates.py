@@ -1,6 +1,6 @@
 """Plate-velocity surface boundary conditions for mantle convection.
 
-TPU-native equivalent of the reference's plate module
+Equivalent of the reference's plate module
 (reference: src/terraneo/plates/PlateVelocityProvider.hpp — plate
 reconstruction surface BCs with rotations and boundary smoothing). The
 reference reads GPlates reconstruction files; here the same API is served

@@ -1,6 +1,6 @@
 """Real spherical harmonics for shell initial conditions and analysis.
 
-TPU-native equivalent of the reference's TerraNeo spherical-harmonics
+Equivalent of the reference's TerraNeo spherical-harmonics
 helpers (reference: src/terraneo/sphericalharmonics/ — used to seed the
 initial temperature perturbation and to analyse radial shells). Fully
 orthonormalized real harmonics

@@ -1,7 +1,7 @@
 """Eulerian energy-transport operator with SUPG, shear and adiabatic
 heating on P1 temperature fields.
 
-TPU analog of the reference's TransportOperatorStd
+Analog of the reference's TransportOperatorStd
 (reference: src/terraneo/operators/TransportOperatorStd.hpp:69-360 —
 term dictionary {DIFFUSION, ADVECTION, ADIABATIC_HEATING, SHEAR_HEATING,
 INTERNAL_HEATING, SUPG_STABILISATION}).  Where the reference's SUPG

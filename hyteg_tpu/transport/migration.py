@@ -2,7 +2,7 @@
 
 Reference: src/convection_particles/mpi/SyncNextNeighbors.{h,cpp} —
 particles that left their rank's subdomain are packed per neighbor rank
-and exchanged p2p.  The TPU-native protocol is collective and
+and exchanged p2p.  The protocol here is collective and
 fixed-shape: each shard packs its emigrants into one (D, M) slot matrix
 ordered by destination shard and a single ``all_to_all`` over the mesh
 axis delivers them; arrivals are compacted into inactive local slots.

@@ -5,7 +5,7 @@ Reference: src/coupling_hyteg_convection_particles/MMOCTransport.hpp:1321-1390
 seeds one particle per DoF, integrates it backwards through the velocity
 field with RK schemes (migrating particles between MPI ranks as they cross
 macro-cell boundaries), then interpolates the old field at the departure
-points. On TPU the same math needs no particles and no migration: departure
+points. Here the same math needs no particles and no migration: departure
 points for *all* DoF nodes are integrated in one batched computation, and
 the old field is evaluated at all of them with the batched point locator
 (functions/evaluate.py) — crossing macro-cell boundaries is just a different

@@ -1,12 +1,12 @@
 """Batched Lagrangian particle engine (convection-particles analog).
 
-TPU-native redesign of the reference's MESA-PD-derived particle modules
+Redesign of the reference's MESA-PD-derived particle modules
 (reference: src/convection_particles/data/ParticleStorage.hpp AoS particle
 records with flags + linked cells; src/convection_particles/mpi/
 SyncNextNeighbors.h particle migration between ranks;
 src/convection_particles/kernel/{ExplicitEuler,TemperatureIntegration}.h).
 
-Design differences, deliberately TPU-first:
+Design differences, deliberately accelerator-first:
 
 - **SoA, fixed capacity.** Particles live in one struct-of-arrays pytree of
   fixed-shape device arrays (positions (P, dim), scalar payloads (P,), an
@@ -16,11 +16,11 @@ Design differences, deliberately TPU-first:
 - **No linked cells, no neighbor sync.** Owner assignment ("which macro-cell
   contains this particle") is recomputed on demand by the batched barycentric
   point location of :class:`~hyteg_tpu.functions.evaluate.FieldEvaluator` —
-  one MXU matmul over all (particle, cell) pairs replaces the reference's
+  one matmul over all (particle, cell) pairs replaces the reference's
   per-rank linked-cell walk + ``SyncNextNeighbors`` MPI migration. Under
   SPMD the velocity blocks are all-gathered instead of migrating particles
   (same collective volume as the reference's ghost-particle exchange, but a
-  single dense ICI collective instead of p2p messages).
+  single dense collective instead of p2p messages).
 - **Integrators as pure functions.** Explicit Euler / RK2 / RK4 through an
   FE velocity field, and a temperature relaxation kernel, all jittable.
 """

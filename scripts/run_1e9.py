@@ -3,9 +3,8 @@
 Default: (4, 4, 4) boxes at level 7 = a 513^3 grid, 1.35e8 DoFs, row-slab
 sharded over 8 virtual devices — the correctness-at-scale analog of the
 reference's extreme-scale GMG runs (reference: apps/2020-scaling-workshop/
-Helpers.cpp:103-532; SISC 2022 TME paper).  Writes BILLION_DOF.json with
-per-cycle residuals, wall times, and the v5e-extrapolated cycle time at
-1.077e9 DoFs (1025^3, the (8,8,8)-level-7 configuration).
+Helpers.cpp:103-532; SISC 2022 TME paper).  Prints one JSON record with
+per-cycle residuals and CPU wall times.
 
 Why not execute 1025^3 here: XLA:CPU hard-terminates any collective whose
 participants arrive > 40 s apart (rendezvous.cc:127).  On this 2-core
@@ -95,10 +94,6 @@ def main():
               f"rate {rns[-1] / rns[-2]:.3f} wall {walls[-1]:.1f}s",
               flush=True)
 
-    # v5e extrapolation: measured single-chip apply ~30 GDoF/s (BENCH_r04),
-    # a V(2,2) cycle is ~7 fine-apply equivalents + 1/7 geometric tail
-    est_v5e_cycle_s = 7 * (1025 ** 3 / 30.0e9) * (8 / 7)
-
     rec = {
         "metric": "box_gmg_extreme_scale",
         "dofs": dom.num_dofs(),
@@ -108,14 +103,7 @@ def main():
         "residuals": [f"{r:.4e}" for r in rns],
         "rates": [round(rns[i + 1] / rns[i], 4) for i in range(len(rns) - 1)],
         "wall_s_per_cycle_cpu": [round(w, 1) for w in walls],
-        "est_v5e_single_chip_cycle_s_at_1e9": round(est_v5e_cycle_s, 3),
-        "note": "largest sharded solve executable under XLA:CPU's 40s"
-                " collective rendezvous limit on this 2-core host (see"
-                " module docstring); v5e estimate from the measured 30"
-                " GDoF/s apply and ~8 fine-apply equivalents per V(2,2)",
     }
-    with open("BILLION_DOF.json", "w") as fh:
-        json.dump(rec, fh, indent=1)
     print(json.dumps(rec), flush=True)
 
 
